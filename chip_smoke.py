@@ -9,14 +9,17 @@ Phases, each printed on its own lines:
 
 1. device: name, ``nvidia-smi`` name and power limit, TF32 flags (off);
 2. build: every CUDA source of the port, one ``nvcc`` each, in parallel;
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (the committed checkpoint's baked grid with the
-   fixture's mask folded in, B = 132): max-abs difference, bitwise
-   run-to-run check, median CUDA-event times of the kernel, the plain
-   version and the one PyTorch library call computing the same function
-   (``F.grid_sample(align_corners=True) * mask`` and its input gradient),
-   and the least time the card could take (bytes over 3.35 TB/s or flops
-   over 67 TFLOP/s float32, the H100 SXM data-sheet rates);
+3. kernels: each kernel's bands, registers and shared memory; each kernel
+   against its plain PyTorch version on the card at the main path's shapes
+   (the committed checkpoint's baked grid with the fixture's mask folded
+   in, B = 132) and on a 90-degree-rotated and a zoom-in grid (B = 5):
+   max-abs difference, bitwise run-to-run check; then times (CUDA events
+   around 50 back-to-back launches, median of 7 such runs, with their
+   spread) of the kernel, the plain version and the one PyTorch library
+   call computing the same function (``F.grid_sample(align_corners=True)
+   * mask`` and its input gradient), and the least time the card could
+   take (bytes over 3.35 TB/s or flops over 67 TFLOP/s float32, the H100
+   SXM data-sheet rates);
 4. main path: the SPAA sweep of one setup at full width (projector
    256x256, camera 240x320, crop 240x240, ResNet-18 at 224x224): the
    committed sim-setup fixture and PCNet checkpoint, 12 configs x 11
@@ -31,6 +34,7 @@ card's ``nvidia-smi`` name and power limit; the last line is
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -51,21 +55,39 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median of per-call CUDA-event times of ``fn()``, in ms."""
+def cuda_ms(fn, launches=50, runs=7, warmup=3):
+    """Time of one call of ``fn()`` in ms: CUDA events around ``launches``
+    back-to-back calls, divided by the count; the median of ``runs`` such
+    runs, with their (min, max) spread."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times), min(times), max(times)
+
+
+def wavy_grid(ho, wo, scale=0.9, rot_deg=2.0, wiggle=0.03,
+              shift=(0.02, -0.01)):
+    """[1, Ho, Wo, 2] smooth test grid (the parity tests' ``_wavy_grid``)."""
+    import numpy as np
+    yy, xx = np.meshgrid(np.linspace(-1, 1, ho), np.linspace(-1, 1, wo),
+                         indexing="ij")
+    th = np.deg2rad(rot_deg)
+    gx = scale * (np.cos(th) * xx - np.sin(th) * yy) \
+        + wiggle * np.sin(3 * yy) + shift[0]
+    gy = scale * (np.sin(th) * xx + np.cos(th) * yy) \
+        + wiggle * np.cos(2 * xx) + shift[1]
+    return np.stack([gx, gy], -1)[None].astype(np.float32)
 
 
 def make_data_root(tmp):
@@ -108,8 +130,13 @@ def phase_build():
         f"{time.time() - t0:.2f} s (nvcc, sm_90a)")
     for name, out in _build.BUILD_LOGS.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line)
+            if spills and spills.groups() != ("0", "0"):
+                raise AssertionError(f"{name}.cu spills registers: {line}")
 
 
 def warp_bounds(warp, n, c):
@@ -132,8 +159,56 @@ def warp_bounds(warp, n, c):
     return out
 
 
+def check_kernel(warp, x, dout, what):
+    """The kernel against its plain version, forward and backward, two runs
+    each: max-abs errors; raises past 1e-5 or if the runs differ."""
+    import torch
+    from spaa_tpu_torch.ops import warp as W
+    fwd = [W.warp_forward(warp, x) for _ in range(2)]
+    bwd = [W.warp_backward(warp, dout) for _ in range(2)]
+    torch.cuda.synchronize()
+    err_f = float((fwd[0] - W.warp_forward_plain(warp, x)).abs().max())
+    err_b = float((bwd[0] - W.warp_backward_plain(warp, dout)).abs().max())
+    bit_f, bit_b = torch.equal(fwd[0], fwd[1]), torch.equal(bwd[0], bwd[1])
+    log(f"[kernels] {what} B={x.shape[0]}: max|kernel-plain| fwd "
+        f"{err_f:.3e} bwd {err_b:.3e}; bitwise run to run fwd {bit_f} bwd "
+        f"{bit_b}")
+    if not (err_f <= 1e-5 and err_b <= 1e-5):
+        raise AssertionError(f"fixed warp kernel disagrees with its plain "
+                             f"version on {what}: fwd {err_f}, bwd {err_b} "
+                             f"(tol 1e-5)")
+    if not (bit_f and bit_b):
+        raise AssertionError(f"fixed warp kernel is not bitwise "
+                             f"deterministic run to run on {what}")
+    return err_f, err_b
+
+
+def band_summary(warp, what, c=3):
+    """Log each pass's bands: count, busy, over budget (gathered from device
+    memory), with a remainder, staged window and shared memory a block."""
+    from spaa_tpu_torch.ops import warp as W
+    out = {}
+    for k, table, backward in (("fwd", warp.fwd, False),
+                               ("bwd", warp.bwd, True)):
+        b = table.bands
+        modes = b.band[:, 0].cpu()
+        out[k] = dict(
+            bands=b.n_bands, busy=b.n_busy,
+            over_budget=int(((modes & 3) == W.BAND_GLOBAL).sum()),
+            remainder=int(((modes & W.BAND_HAS_REMAINDER) != 0).sum()))
+        log(f"[kernels] {what} {k}: {b.n_bands} bands of {b.band_px} px, "
+            f"{b.n_busy} busy, {out[k]['over_budget']} over budget, "
+            f"{out[k]['remainder']} with remainder taps, {b.seg.shape[0]} "
+            f"segments, widest window {b.stage_px} px, "
+            f"{W.smem_bytes(table, c, backward)} B dynamic shared memory a "
+            f"block")
+    return out
+
+
 def phase_kernels(trained, dev, batch):
-    """Each kernel vs its plain version at the main path's shapes."""
+    """Each kernel vs its plain version at the main path's shapes, and on
+    two grids that leave its common path (B = 5): a 90-degree rotation
+    (bands over the staging budget) and a zoom-in (remainder taps)."""
     import torch
     import torch.nn.functional as F
     from spaa_tpu_torch.attack.orchestrate import pcnet_warp
@@ -149,20 +224,28 @@ def phase_kernels(trained, dev, batch):
     log(f"[kernels] fixed warp tables: fwd {warp.fwd.rows} rows, "
         f"{warp.fwd.col.numel()} taps (max {warp.fwd.ell_col.shape[1]}/row); "
         f"bwd {warp.bwd.rows} rows, max fan-in {warp.bwd.ell_col.shape[1]}")
+    band_summary(warp, "main grid")
+    for k, backward in (("fwd", False), ("bwd", True)):
+        attrs = W.kernel_attrs(backward)
+        log(f"[kernels] fixed_warp_{k}_kernel: {attrs}")
+        if attrs["local_bytes"]:
+            raise AssertionError(f"fixed_warp_{k}_kernel uses local memory "
+                                 f"(register spills): {attrs}")
+    err_f, err_b = check_kernel(warp, x, dout, "main grid")
 
-    fwd = [W.warp_forward(warp, x) for _ in range(2)]
-    bwd = [W.warp_backward(warp, dout) for _ in range(2)]
-    torch.cuda.synchronize()
-    ref_f = W.warp_forward_plain(warp, x)
-    ref_b = W.warp_backward_plain(warp, dout)
-    err_f = float((fwd[0] - ref_f).abs().max())
-    err_b = float((bwd[0] - ref_b).abs().max())
-    bit_f, bit_b = torch.equal(fwd[0], fwd[1]), torch.equal(bwd[0], bwd[1])
+    mask = trained.mask[..., 0]
+    for what, kw, key, flag in (
+            ("rotated_90 grid", dict(rot_deg=90.0), "over_budget", "fwd"),
+            ("zoom_in grid", dict(scale=0.5), "remainder", "bwd")):
+        other = W.build_fixed_warp(wavy_grid(ho, wo, **kw), (hp, wp),
+                                   dst_weight=mask, device=dev)
+        if band_summary(other, what)[flag][key] == 0:
+            raise AssertionError(f"{what} has no {flag} band {key}")
+        check_kernel(other, x[:5], dout[:5], what)
 
     # the library yardstick (never called by the port): grid_sample * mask
     x_nchw = x.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
     grid = cache.fine_grid.expand(batch, -1, -1, -1)
-    mask = trained.mask[..., 0]
 
     def lib_fwd():
         return F.grid_sample(x_nchw, grid, mode="bilinear",
@@ -170,36 +253,34 @@ def phase_kernels(trained, dev, batch):
 
     lib_out = lib_fwd()
     lib_grad, = torch.autograd.grad(lib_out, x_nchw, dout, retain_graph=True)
-    err_lib_f = float((lib_out.detach() - ref_f).abs().max())
-    err_lib_b = float((lib_grad.permute(0, 2, 3, 1) - ref_b).abs().max())
-
     with torch.no_grad():
+        err_lib_f = float((lib_out - W.warp_forward_plain(warp, x))
+                          .abs().max())
+        err_lib_b = float((lib_grad.permute(0, 2, 3, 1)
+                           - W.warp_backward_plain(warp, dout)).abs().max())
         t = dict(
             fwd=cuda_ms(lambda: W.warp_forward(warp, x)),
-            fwd_plain=cuda_ms(lambda: W.warp_forward_plain(warp, x), reps=10),
+            fwd_plain=cuda_ms(lambda: W.warp_forward_plain(warp, x),
+                              launches=3, runs=3),
             fwd_lib=cuda_ms(lib_fwd),
             bwd=cuda_ms(lambda: W.warp_backward(warp, dout)),
             bwd_plain=cuda_ms(lambda: W.warp_backward_plain(warp, dout),
-                              reps=10))
+                              launches=3, runs=3))
     t["bwd_lib"] = cuda_ms(lambda: torch.autograd.grad(
-        lib_out, x_nchw, dout, retain_graph=True))
+        lib_out, x_nchw, dout, retain_graph=True), launches=10, runs=5)
     bounds = warp_bounds(warp, batch, 3)
-    for k, err, bit in (("fwd", err_f, bit_f), ("bwd", err_b, bit_b)):
+    for k in ("fwd", "bwd"):
         b = bounds[k]
-        log(f"[kernels] fixed_warp_{k}: max|kernel-plain|={err:.3e} "
-            f"bitwise_run_to_run={bit} kernel={t[k]:.4f} ms "
-            f"plain={t[k + '_plain']:.4f} ms library={t[k + '_lib']:.4f} ms "
+        med, lo, hi = t[k]
+        log(f"[kernels] fixed_warp_{k}: kernel={med:.4f} ms (min {lo:.4f}, "
+            f"max {hi:.4f} over 7 runs of 50 launches) "
+            f"plain={t[k + '_plain'][0]:.4f} ms "
+            f"library={t[k + '_lib'][0]:.4f} ms "
             f"bound={b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
-            f"{b['flops']} flop) -> {100 * b['bound_ms'] / t[k]:.1f}% of "
+            f"{b['flops']} flop) -> {100 * b['bound_ms'] / med:.1f}% of "
             f"bound")
     log(f"[kernels] library grid_sample*mask vs plain: fwd "
         f"{err_lib_f:.3e}, input grad {err_lib_b:.3e}")
-    if not (err_f <= 1e-5 and err_b <= 1e-5):
-        raise AssertionError(f"fixed warp kernel disagrees with its plain "
-                             f"version: fwd {err_f}, bwd {err_b} (tol 1e-5)")
-    if not (bit_f and bit_b):
-        raise AssertionError("fixed warp kernel is not bitwise "
-                             "deterministic run to run")
     del lib_out
     rows = []
     for k, err in (("fwd", err_f), ("bwd", err_b)):
@@ -207,9 +288,9 @@ def phase_kernels(trained, dev, batch):
             name=f"fixed_warp_{k}", route="cuda",
             source="spaa_tpu_torch/csrc/fixed_warp.cu",
             replaces="spaa_tpu/ops/pallas/warp.py:234", launches=None,
-            max_abs_err=err, ms=t[k], plain_ms=t[k + "_plain"],
+            max_abs_err=err, ms=t[k][0], plain_ms=t[k + "_plain"][0],
             bound_ms=bounds[k]["bound_ms"], bound_by=bounds[k]["bound_by"],
-            library_ms=t[k + "_lib"]))
+            library_ms=t[k + "_lib"][0]))
     return rows
 
 
