@@ -25,7 +25,24 @@ Phases, each printed on its own lines:
    committed sim-setup fixture and PCNet checkpoint, 12 configs x 11
    samples = 132 images, 50 iterations, float32, 264 PNGs written; launch
    counts of every kernel in that run, wall-clock, peak memory, output
-   checks, and the card's PCNet forward against the CPU's on 2 images.
+   checks, and the card's PCNet forward against the CPU's on 2 images;
+5. sim: the port's own ``SimProCams`` (seed 7) writes the benchmark-size
+   setup (500 training and 200 validation pairs) in a second data root:
+   host time; mask and corners equal the committed fixture's;
+6. train: ``train_eval_pcnet`` on that setup at full width (batch 24),
+   the default config but ``max_iters`` 200 and ``valid_rate`` 100:
+   ms per training iteration (steady state, re-timed), the loss at the
+   first and last segment, the final validation PSNR/RMSE/SSIM against
+   the untrained model's and a floor of 30 dB, peak memory; the port's
+   loader reads the checkpoint back. The training run uses PyTorch's
+   deterministic kernels: with the default ones, rounding that differs
+   from run to run sends some runs into a mode that stays near 22 dB, so
+   only a run that repeats bit for bit can be held to the floor;
+7. main path, VGG-16 (224x224) and Inception-v3 (299x299):
+   ``run_projector_based_attack`` with ``load_pretrained`` on the trained
+   checkpoint, the full 132-image x 50-iteration sweep per classifier:
+   s/config, ms/iteration, peak memory, 264 PNGs, finite outputs in
+   [0, 1], 50 + 50 warp launches each.
 
 Before the last line it prints the kernels as one JSON object and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -33,6 +50,7 @@ card's ``nvidia-smi`` name and power limit; the last line is
 """
 
 import json
+import math
 import os
 import re
 import shutil
@@ -43,12 +61,23 @@ import tempfile
 import time
 from os.path import abspath, dirname, join
 
+# [train] runs on deterministic kernels; cuBLAS needs its workspace fixed
+# before it starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 REPO = dirname(abspath(__file__))
 CKPT_NAME = "sim_setup_PCNet_l1+ssim_500_24_2000_0.001_0.2_800_0.0001.flax"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak memory rate
 FP32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores
 ITERS = 50
 NUM_TRAIN = 500               # training pairs of the sim benchmark setup
+NUM_VALID = 200               # validation pairs (bench.py:122)
+TRAIN_ITERS = 200             # PCNet training budget of the smoke
+VALID_RATE = 100
+# valid PSNR after TRAIN_ITERS: runs that collapse the warp's affine read
+# 21.89-24.86 dB there, runs that train 30.83-36.82 dB, the deterministic
+# run of the default seed 34.32 dB (PERF.md section 6)
+TRAIN_PSNR_FLOOR = 30.0
+STEADY_WARMUP, STEADY_STEPS = 3, 10   # re-timed training iterations
 
 
 def log(msg):
@@ -294,12 +323,36 @@ def phase_kernels(trained, dev, batch):
     return rows
 
 
+def steady_ms_per_iter(cfg, pcnet_apply, clf, cam_scene, target_idx,
+                       true_idx, info, dev, iters=5):
+    """ms per SPAA iteration on the warm path: the sweep's batch re-run
+    for ``iters`` iterations, host clock around synchronised calls."""
+    import torch
+    from spaa_tpu_torch.attack import orchestrate as O
+    from spaa_tpu_torch.attack.spaa import spaa_attack_batched
+
+    cp_sz = tuple(int(v) for v in info["classifier_crop_sz"])
+    (_, _, prj_init, tgt, targeted, w, dt,
+     scfg) = O.build_spaa_sweep_arrays(cfg, info, target_idx, true_idx)
+
+    def tt(a, dtype=torch.float32):
+        return torch.from_numpy(a).to(dev, dtype)
+
+    args = (pcnet_apply, O.make_attack_logits_fn(clf, cp_sz), cam_scene,
+            tt(prj_init), tt(tgt, torch.long), tt(targeted, torch.bool),
+            tt(w), tt(dt), scfg._replace(iters=iters))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    spaa_attack_batched(*args)
+    torch.cuda.synchronize()
+    return 1e3 * (time.time() - t0) / iters
+
+
 def phase_main_path(cfg, trained, dev):
     """The SPAA sweep of one setup: every (stealth loss x d_thr) config of
     ``cfg`` x 11 samples as one batch, ``cfg.attack_iters`` iterations."""
     import torch
     from spaa_tpu_torch.attack import orchestrate as O
-    from spaa_tpu_torch.attack.spaa import spaa_attack_batched
     from spaa_tpu_torch.models.classifiers import (Classifier,
                                                    load_imagenet_labels)
     from spaa_tpu_torch.ops import warp as W
@@ -339,8 +392,7 @@ def phase_main_path(cfg, trained, dev):
     launches = dict(W.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
-    n_png = sum(len(f) for _, _, f in os.walk(join(setup_path, "prj/adv"))) \
-        + sum(len(f) for _, _, f in os.walk(join(setup_path, "cam/infer/adv")))
+    n_png = count_pngs(setup_path)
     ok_out = all(bool(torch.isfinite(t).all()) and float(t.min()) >= 0.0
                  and float(t.max()) <= 1.0 for t in (cam_best, prj_best))
     log(f"[main] sweep: {wall:.3f} s wall ({wall / n_cfg:.3f} s/config) "
@@ -361,23 +413,9 @@ def phase_main_path(cfg, trained, dev):
             raise AssertionError(f"{k} launched {launches[k]} times in the "
                                  f"sweep, expected {iters}")
 
-    # steady-state iteration time, re-timed on the warm path (5 iterations)
     pcnet_apply = O.make_pcnet_fn(trained)
-    logits_fn = O.make_attack_logits_fn(clf, cp_sz)
-    (_, _, prj_init, tgt, targeted, w, dt,
-     scfg) = O.build_spaa_sweep_arrays(cfg, info, target_idx, true_idx)
-
-    def tt(a, dtype=torch.float32):
-        return torch.from_numpy(a).to(dev, dtype)
-
-    args = (pcnet_apply, logits_fn, cam_scene, tt(prj_init),
-            tt(tgt, torch.long), tt(targeted, torch.bool), tt(w), tt(dt),
-            scfg._replace(iters=5))
-    torch.cuda.synchronize()
-    t1 = time.time()
-    spaa_attack_batched(*args)
-    torch.cuda.synchronize()
-    ms_iter = 1e3 * (time.time() - t1) / 5
+    ms_iter = steady_ms_per_iter(cfg, pcnet_apply, clf, cam_scene,
+                                 target_idx, true_idx, info, dev)
     log(f"[main] steady state: {ms_iter:.2f} ms/iteration at B={b}")
 
     # the card's forward against the CPU's plain path on 2 images
@@ -406,6 +444,219 @@ def check_against_cpu(data_root, small, on_card):
         raise AssertionError(f"card and CPU PCNet forwards disagree: {err}")
 
 
+def count_pngs(root, classifier=None):
+    n = 0
+    for sub in ("prj/adv", "cam/infer/adv"):
+        for d, _, files in os.walk(join(root, sub)):
+            if classifier is None or os.path.basename(d) == classifier:
+                n += len(files)
+    return n
+
+
+def phase_sim(tmp):
+    """The port's simulator writes the benchmark-size setup; its mask and
+    corners must equal the committed fixture's."""
+    from spaa_tpu_torch.train.data import nayar_separation
+    from spaa_tpu_torch.utils.imgproc_host import threshold_im
+    from spaa_tpu_torch.utils.io import imread_dir
+    from spaa_tpu_torch.utils.sim_procams import (DEFAULT_SIM_SETUP_INFO,
+                                                  SimProCams)
+    data = join(tmp, "sim", "data")
+    t0 = time.time()
+    SimProCams(dict(DEFAULT_SIM_SETUP_INFO), seed=7).make_setup(
+        data, "sim_setup", num_train=NUM_TRAIN, num_test=NUM_VALID)
+    host_s = time.time() - t0
+
+    def mask_corners(setup):
+        direct, _ = nayar_separation(imread_dir(join(setup, "cam/raw/cb")))
+        m, _, corners = threshold_im(direct)
+        return m, corners
+
+    m, c = mask_corners(join(data, "setups", "sim_setup"))
+    m_fix, c_fix = mask_corners(join(REPO, "spaa_tpu_torch", "assets",
+                                     "sim_setup"))
+    same = bool((m == m_fix).all()) and c == c_fix
+    log(f"[sim] SimProCams(seed=7).make_setup: {NUM_TRAIN} train + "
+        f"{NUM_VALID} validation pairs in {host_s:.3f} s host time; mask "
+        f"({int(m.sum())} px) and corners equal the fixture's: {same}")
+    if not same:
+        raise AssertionError("the port's sim setup has another mask or "
+                             "other corners than the committed fixture")
+    return data, host_s
+
+
+def phase_train(data_root, dev):
+    """train_eval_pcnet at full width on deterministic kernels; the
+    checkpoint read back; then the steady-state training iteration on the
+    default kernels, re-timed on a fresh model."""
+    import torch
+    from spaa_tpu_torch.train import pipeline as P
+    from spaa_tpu_torch.train.data import as_uint8_wire, load_data
+    from spaa_tpu_torch.train.train import (get_model_train_cfg,
+                                            make_evaluator,
+                                            make_pcnet_optimizer)
+    from spaa_tpu_torch.utils.seed import reset_rng_seeds
+
+    mc = get_model_train_cfg(["PCNet"], data_root, ["sim_setup"])
+    mc.max_iters = TRAIN_ITERS
+    mc.valid_rate = VALID_RATE
+    data = load_data(data_root, "sim_setup")
+    scene = torch.from_numpy(data["cam_scene"]).to(dev)
+    mask = torch.from_numpy(data["mask"]).to(dev)
+    untrained = P._build_pcnet("PCNet", data["cam_scene"].shape[1:3],
+                               data["mask_corners"],
+                               reset_rng_seeds(123)).to(dev)
+    psnr0 = make_evaluator(lambda x: untrained(x, scene, mask),
+                           as_uint8_wire(data["prj_valid"]),
+                           as_uint8_wire(data["cam_valid"]), dev)()[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        trained, table, cfg = P.train_eval_pcnet(mc, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    curve = [json.loads(line) for line in open(join(
+        data_root, "..", "log", "curves_PCNet_sim_setup.jsonl"))]
+    psnr, rmse, ssim = table.rows[0][6:9]
+    losses = [c["train_loss"] for c in curve]
+    log(f"[train] train_eval_pcnet: {TRAIN_ITERS} iterations at batch "
+        f"{cfg.batch_size}, {cfg.num_train} pairs, deterministic kernels, "
+        f"in {wall:.3f} s wall (data load, 2 validations, final validation "
+        f"of {NUM_VALID} and PNG writes included); loss {losses[0]:.5f} at iteration "
+        f"{curve[0]['step']}, {losses[-1]:.5f} at {curve[-1]['step']}; "
+        f"valid PSNR {psnr:.4f} RMSE {rmse:.4f} SSIM {ssim:.4f} (untrained "
+        f"PSNR {psnr0:.4f}); peak memory {peak / 2**30:.3f} GiB")
+    if not all(math.isfinite(v) for v in losses + [psnr, rmse, ssim]):
+        raise AssertionError(f"non-finite training losses or metrics: "
+                             f"{losses}, {psnr}, {rmse}, {ssim}")
+    if not psnr > psnr0:
+        raise AssertionError(f"training did not raise the validation PSNR "
+                             f"({psnr0} -> {psnr})")
+    if not psnr >= TRAIN_PSNR_FLOOR:
+        raise AssertionError(f"valid PSNR {psnr} dB after {TRAIN_ITERS} "
+                             f"iterations is under {TRAIN_PSNR_FLOOR} dB: "
+                             f"the warp's affine collapsed")
+
+    # the checkpoint, read back by the port's loader
+    back, _ = P.load_pretrained_pcnet(mc, "sim_setup", dev)
+    for k, v in trained.model.state_dict().items():
+        if not torch.equal(back.model.state_dict()[k], v):
+            raise AssertionError(f"checkpoint read back differs at {k}")
+
+    # steady-state iteration: a fresh model, 10 l1 and 10 l1+ssim steps
+    model = P._build_pcnet("PCNet", data["cam_scene"].shape[1:3],
+                           data["mask_corners"], reset_rng_seeds(123)).to(dev)
+    opt, sched = make_pcnet_optimizer(model, cfg)
+    loss_fn = P.make_pcnet_loss(model, scene, mask)
+    x_all = torch.from_numpy(as_uint8_wire(data["prj_train"])).to(dev)
+    y_all = torch.from_numpy(as_uint8_wire(data["cam_train"])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ms = {}
+    for phase, itr in (("l1", 0), ("l1+ssim", 401)):
+        times = []
+        for k in range(STEADY_WARMUP + STEADY_STEPS):
+            idx = torch.randint(0, x_all.shape[0], (cfg.batch_size,),
+                                generator=gen, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            loss, _ = loss_fn(x_all[idx].float() / 255.0,
+                              y_all[idx].float() / 255.0, itr)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            sched.step()
+            torch.cuda.synchronize()
+            if k >= STEADY_WARMUP:
+                times.append(1e3 * (time.time() - t1))
+        ms[phase] = statistics.median(times)
+    log(f"[train] steady state at batch {cfg.batch_size}: "
+        f"{ms['l1']:.2f} ms/iteration (l1, iterations <= 400), "
+        f"{ms['l1+ssim']:.2f} ms/iteration (l1+ssim), median of "
+        f"{STEADY_STEPS}")
+    return dict(wall_s=wall, ms_l1=ms["l1"], ms_l1_ssim=ms["l1+ssim"],
+                peak_bytes=peak, psnr=psnr, psnr0=psnr0)
+
+
+def phase_attack(data_root, dev, classifier):
+    """run_projector_based_attack with load_pretrained on the trained
+    checkpoint: one classifier's full sweep; the sweep itself is timed
+    and its outputs checked through a wrapper of ``_run_spaa_sweep``."""
+    import torch
+    from spaa_tpu_torch.attack import orchestrate as O
+    from spaa_tpu_torch.ops import warp as W
+
+    cfg = O.get_attacker_cfg("SPAA", data_root, ["sim_setup"],
+                             load_pretrained=True)
+    cfg.classifier_names = [classifier]
+    cfg.attack_iters = ITERS
+    cfg.max_iters = TRAIN_ITERS
+    n_cfg = len(cfg.stealth_losses) * len(cfg.d_threshes)
+    seen = {}
+    orig = O._run_spaa_sweep
+
+    def timed_sweep(cfg_, trained, clf, *args):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        W.reset_launch_counts()
+        t0 = time.time()
+        out = orig(cfg_, trained, clf, *args)
+        torch.cuda.synchronize()
+        seen.update(wall=time.time() - t0, launches=dict(W.LAUNCHES),
+                    peak=torch.cuda.max_memory_allocated(), out=out,
+                    trained=trained, clf=clf, args=args)
+        return out
+
+    O._run_spaa_sweep = timed_sweep
+    try:
+        O.run_projector_based_attack(cfg, weights_dir=join(REPO,
+                                                           "checkpoint"),
+                                     device=dev)
+    finally:
+        O._run_spaa_sweep = orig
+    cam_best, prj_best = seen["out"]
+    launches, wall = seen["launches"], seen["wall"]
+    setup_path = join(data_root, "setups", "sim_setup")
+    n_png = count_pngs(setup_path, classifier)
+    ok_out = all(bool(torch.isfinite(t).all()) and float(t.min()) >= 0.0
+                 and float(t.max()) <= 1.0 for t in (cam_best, prj_best))
+    clf = seen["clf"]
+    src = ("torchvision .pth" if clf.loaded_pretrained
+           else "deterministic init, seed 0")
+
+    (cam_scene, target_idx, true_idx, info) = seen["args"][:4]
+    ms_iter = steady_ms_per_iter(cfg, O.make_pcnet_fn(seen["trained"]), clf,
+                                 cam_scene, target_idx, true_idx, info, dev)
+    b = 11 * n_cfg
+    log(f"[main] {classifier} ({src}, input {clf.input_sz[0]}x"
+        f"{clf.input_sz[1]}): sweep {wall:.3f} s wall ({wall / n_cfg:.3f} "
+        f"s/config) for {cam_best.shape[0]} images x {ITERS} iterations; "
+        f"steady state {ms_iter:.2f} ms/iteration; peak memory "
+        f"{seen['peak'] / 2**30:.3f} GiB; {n_png} PNGs; outputs finite and "
+        f"in [0,1]: {ok_out}; launches {launches}")
+    if cam_best.shape[0] != b or prj_best.shape[0] != b:
+        raise AssertionError(f"unexpected batch {cam_best.shape[0]}")
+    if not ok_out:
+        raise AssertionError(f"{classifier} sweep outputs are not finite in "
+                             "[0, 1]")
+    if n_png != 2 * b:
+        raise AssertionError(f"expected {2 * b} PNGs for {classifier}, "
+                             f"found {n_png}")
+    for k in ("fixed_warp_fwd", "fixed_warp_bwd"):
+        if launches[k] != ITERS:
+            raise AssertionError(f"{k} launched {launches[k]} times in the "
+                                 f"{classifier} sweep, expected {ITERS}")
+    return dict(wall_s=wall, s_per_config=wall / n_cfg, ms_per_iter=ms_iter,
+                peak_bytes=seen["peak"], launches=launches)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -429,8 +680,12 @@ def main():
         cfg.attack_iters = ITERS
         res = phase_main_path(cfg, trained, dev)
         check_against_cpu(data_root, res["prj_small"], res["on_card"])
+        sim_root, _ = phase_sim(tmp)
+        phase_train(sim_root, dev)
+        sweeps = [res] + [phase_attack(sim_root, dev, name)
+                          for name in ("vgg16", "inception_v3")]
     for r in rows:
-        r["launches"] = res["launches"][r["name"]]
+        r["launches"] = sum(sw["launches"][r["name"]] for sw in sweeps)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,11 +1,13 @@
 """spaa_tpu_torch: the SPAA attack system in PyTorch, for one NVIDIA H100.
 
 A port of ``spaa_tpu`` (JAX/Flax/Pallas on a TPU), which stays in the
-repository as the reference. This package holds the attack's main path:
-the frozen PCNet project-and-capture simulator with its baked warp grid,
-the ResNet-18 classify pipeline, the CIEDE2000 colour losses and the fused
-SPAA sweep. The one TPU kernel on that path, the fixed-grid bilinear warp,
-is a CUDA C++ kernel written for ``sm_90a`` (``csrc/fixed_warp.cu``).
+repository as the reference. This package holds the SPAA attacker from
+captures to adversarial images: the analytic ProCams simulator that writes
+a setup, PCNet training and validation, the frozen PCNet with its baked
+warp grid, the ResNet-18 / VGG-16 / Inception-v3 classify pipelines, the
+CIEDE2000 colour losses and the fused SPAA sweep. The one TPU kernel on
+that path, the fixed-grid bilinear warp, is a CUDA C++ kernel written for
+``sm_90a`` (``csrc/fixed_warp.cu``).
 
 Ground rules:
 
@@ -13,7 +15,8 @@ Ground rules:
   module of ``spaa_tpu``; what it needs of them is copied.
 - No host packages the GPU machine lacks: no ``cv2``, ``PIL``, ``yaml``,
   ``pandas``, ``flax`` or ``msgpack``. PNG, the flat ``setup_info.yml``
-  and the ``.flax`` checkpoint are read with the standard library and
+  and the ``.flax`` checkpoint are read and written with the standard
+  library and numpy, and OpenCV's image operations are reproduced in
   numpy.
 - Module names follow ``spaa_tpu`` so each piece has an obvious
   counterpart; inside, the idiom is PyTorch's: ``nn.Module``s, plain

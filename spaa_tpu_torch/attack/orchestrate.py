@@ -30,7 +30,7 @@ from spaa_tpu_torch.ops.image import center_crop
 from spaa_tpu_torch.ops.warp import (FixedWarp, build_fixed_warp,
                                      fixed_warp_apply)
 from spaa_tpu_torch.train.data import load_setup_info
-from spaa_tpu_torch.train.pipeline import load_pretrained_pcnet
+from spaa_tpu_torch.train.pipeline import train_eval_pcnet
 from spaa_tpu_torch.train.train import get_model_train_cfg
 from spaa_tpu_torch.utils.config import DictConfig
 from spaa_tpu_torch.utils.device import resolve_device
@@ -241,9 +241,10 @@ def run_projector_based_attack(cfg, weights_dir: Optional[str] = None,
                                device=None):
     """Sweep entry point (ref ``projector_based_attack.py:24-148``), SPAA only.
 
-    ``weights_dir``: where to look for classifier ``.pth`` files. The
-    trained PCNet must already exist under its config-string key (see
-    ``train.pipeline.load_pretrained_pcnet``)."""
+    ``weights_dir``: where to look for classifier ``.pth`` files. PCNet
+    trains (or, with ``cfg.load_pretrained`` and a checkpoint under its
+    config-string key, loads) through ``train.pipeline.train_eval_pcnet``;
+    ``cfg.max_iters`` overrides its training budget."""
     dev = resolve_device(device)
     attacker_name = cfg.attacker_name
     if attacker_name not in ATTACKER_NAMES:
@@ -275,7 +276,7 @@ def run_projector_based_attack(cfg, weights_dir: Optional[str] = None,
         model_cfg.model_list = ["PCNet"]
         if "max_iters" in cfg:
             model_cfg.max_iters = cfg.max_iters
-        trained, model_cfg = load_pretrained_pcnet(model_cfg, setup_name, dev)
+        trained, _, model_cfg = train_eval_pcnet(model_cfg, dev)
         cfg.model_cfg = dict(model_cfg)
         attacker_cfg_str = to_attacker_cfg_str(attacker_name)[0]
 

@@ -1,11 +1,11 @@
 """Classifier zoo and the classify pipeline (counterpart of
 ``spaa_tpu/models/classifiers/__init__.py``, reference ``classifier.py``).
 
-This slice ports ResNet-18; VGG-16 and Inception-v3 are ROADMAP.md queue A
-item 1 and raise ``NotImplementedError`` until then. Weights come from a
-torchvision ``resnet18-5c106cde.pth`` in the weights directory when one is
-there (loaded as it is: the module names are torchvision's), else from a
-deterministic init seeded by a ``torch.Generator``.
+ResNet-18, VGG-16 and Inception-v3 (224x224, 224x224 and 299x299 inputs).
+Weights come from the pinned torchvision ``.pth`` in the weights directory
+when one is there (loaded as it is: the module names are torchvision's;
+Inception's auxiliary head is dropped), else from a deterministic init
+seeded by a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -19,44 +19,41 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from spaa_tpu_torch.models.classifiers.inception import InceptionV3
 from spaa_tpu_torch.models.classifiers.resnet import ResNet18
+from spaa_tpu_torch.models.classifiers.vgg import VGG16
 from spaa_tpu_torch.ops.image import center_crop_nchw, resize_area_nchw
 from spaa_tpu_torch.utils.device import resolve_device
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
-PRETRAINED_FILES = {"resnet18": "resnet18-5c106cde.pth"}
-_NOT_PORTED = ("vgg16", "inception_v3")
+PRETRAINED_FILES = {"resnet18": "resnet18-5c106cde.pth",
+                    "vgg16": "vgg16-397923af.pth",
+                    "inception_v3": "inception_v3_google-0cc3c7bd.pth"}
+_MODELS = {"resnet18": ResNet18, "vgg16": VGG16, "inception_v3": InceptionV3}
 
 _REPO = os.path.abspath(join(os.path.dirname(os.path.abspath(__file__)),
                              "..", "..", ".."))
 DEFAULT_WEIGHTS_DIR = join(_REPO, "checkpoint")
 
 
-def _check_ported(model_name: str) -> None:
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_name} is not ported yet (ROADMAP.md queue A item 1: "
-            "VGG-16 and Inception-v3)")
-    if model_name not in PRETRAINED_FILES:
-        raise ValueError(f"{model_name} not supported")
-
-
 def build_classifier(model_name: str, weights_dir: Optional[str] = None,
                      seed: int = 0, device=None):
     """Frozen eval-mode network on ``device`` (default ``cuda``) and the
     source of its weights ('pth' or 'random')."""
-    _check_ported(model_name)
+    if model_name not in _MODELS:
+        raise ValueError(f"{model_name} not supported")
     device = resolve_device(device)
-    net = ResNet18()
+    net = _MODELS[model_name]()
     if weights_dir is None:
         weights_dir = DEFAULT_WEIGHTS_DIR
     pth = join(weights_dir, PRETRAINED_FILES[model_name])
     if os.path.exists(pth):
         sd = torch.load(pth, map_location="cpu", weights_only=True)
         sd = {k: v for k, v in sd.items()
-              if not k.endswith("num_batches_tracked")}
+              if not (k.endswith("num_batches_tracked")
+                      or k.startswith("AuxLogits."))}
         net.load_state_dict(sd)
         source = "pth"
     else:

@@ -76,17 +76,22 @@ class ResNet18(nn.Module):
         return self.fc(x.mean(dim=(2, 3)))
 
     def init_weights(self, generator: torch.Generator) -> "ResNet18":
-        """Deterministic random init from ``generator`` (He-normal convs,
-        LeCun-normal fc, identity BatchNorm), used when no pretrained
-        weights are found."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (nn.Conv2d, nn.Linear)):
-                    fan_in = m.weight[0].numel()
-                    gain = 2.0 if isinstance(m, nn.Conv2d) else 1.0
-                    m.weight.copy_(torch.randn(m.weight.shape,
-                                               generator=generator)
-                                   * (gain / fan_in) ** 0.5)
-                    if m.bias is not None:
-                        m.bias.zero_()
-        return self
+        """Deterministic random init (see ``init_he_lecun``)."""
+        return init_he_lecun(self, generator)
+
+
+def init_he_lecun(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Deterministic random init of a classifier from ``generator``,
+    used when no pretrained weights are found: He-normal convolutions,
+    LeCun-normal linears, zero biases, identity BatchNorm."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                gain = 2.0 if isinstance(m, nn.Conv2d) else 1.0
+                m.weight.copy_(torch.randn(m.weight.shape,
+                                           generator=generator)
+                               * (gain / fan_in) ** 0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+    return net

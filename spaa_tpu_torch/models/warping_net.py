@@ -3,13 +3,17 @@
 Counterpart of ``spaa_tpu/models/warping_net.py`` (reference
 ``models.py:98-185``). At attack time only the baked grid is used
 (:meth:`WarpingNet.simplify`); the warp itself is the fixed-grid kernel of
-``spaa_tpu_torch.ops.warp``. Grids are [N, H, W, 2] with (x, y) in [-1, 1].
+``spaa_tpu_torch.ops.warp``. In training, PCNet's forward builds the grid
+with :meth:`WarpingNet.fine_grid` and samples through ``ops.image``'s
+``grid_sample``, both differentiable in the grid's parameters. Grids are
+[N, H, W, 2] with (x, y) in [-1, 1].
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -68,3 +72,19 @@ class WarpingNet(nn.Module):
     def simplify(self) -> torch.Tensor:
         """The baked sampling grid."""
         return self.fine_grid()
+
+
+def affine_from_corners(mask_corners, inverse: bool = False) -> torch.Tensor:
+    """Initial [1, 2, 3] affine from the direct-light mask's bounding-box
+    corners (in [-1, 1] grid coordinates), as ``spaa_tpu``'s
+    ``affine_from_corners`` (ref ``train_network.py:543-546``): the map
+    taking the first three corners to (-1,-1), (1,-1), (1,1), since
+    ``grid_sample`` warps inversely. ``inverse=True`` gives the opposite
+    map, the init of CompenNet++'s warp (PARITY.md "Known deviations")."""
+    dst = np.asarray(mask_corners[0:3], np.float64)
+    src = np.array([[-1, -1], [1, -1], [1, 1]], np.float64)
+    if inverse:
+        dst, src = src, dst
+    m = np.concatenate([dst, np.ones((3, 1))], axis=1)
+    aff = np.linalg.solve(m, src).T
+    return torch.from_numpy(aff[None].astype(np.float32))

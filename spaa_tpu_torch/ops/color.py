@@ -175,3 +175,9 @@ def ciede2000_diff(lab1: torch.Tensor, lab2: torch.Tensor,
               + term_h * term_h * nz_both + rt * term_c * term_h * nz_both)
     nonpos = (res_sq <= 0).to(res_sq.dtype)
     return torch.sqrt(res_sq + 1e-4 * nonpos) * (1.0 - nonpos)
+
+
+def deltaE(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Scalar mean CIEDE2000 between two NHWC RGB images (ref
+    ``differential_color_functions.py:183-190``)."""
+    return torch.mean(ciede2000_diff(rgb2lab_diff(x), rgb2lab_diff(y)))

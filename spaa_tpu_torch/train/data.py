@@ -1,9 +1,9 @@
-"""Per-setup data: setup info, Nayar separation and the direct-light mask.
+"""Per-setup data: setup info, captures, Nayar separation and the mask.
 
-Counterpart of ``spaa_tpu/train/data.py`` plus the mask half of
-``spaa_tpu/utils/imgproc_host.py::threshold_im``. The ROI, convex hull and
-bounding-box corners of ``threshold_im`` are only needed to initialise
-training and come with the training slice.
+Counterpart of ``spaa_tpu/train/data.py`` (reference
+``train_network.py:39-95``). Arrays are NHWC float32 numpy on the host;
+training moves the train and validation images to the device once, as
+uint8 (:func:`as_uint8_wire`).
 """
 
 from __future__ import annotations
@@ -15,11 +15,9 @@ from os.path import join
 import numpy as np
 
 from spaa_tpu_torch.utils.config import DictConfig, load_flat_yaml
-
-# cv2.getGaussianKernel(3, 1.5) in OpenCV's 8-bit fixed point (weights
-# scaled by 256 and rounded; they sum to 256): the bit-exact path
-# cv2.GaussianBlur takes for uint8 images
-_GAUSS3_Q8 = np.array([79, 98, 79], np.int64)
+from spaa_tpu_torch.utils.imgproc_host import (direct_light_mask,  # noqa: F401
+                                               multi_otsu, threshold_im)
+from spaa_tpu_torch.utils.io import imread_dir
 
 
 def load_setup_info(setup_path: str) -> DictConfig:
@@ -30,6 +28,16 @@ def load_setup_info(setup_path: str) -> DictConfig:
     default_fn = join(setup_path, "../setup_info_default.yml")
     warnings.warn(f"{fn} not found, loading {default_fn} instead")
     return load_flat_yaml(default_fn)
+
+
+def as_uint8_wire(x) -> np.ndarray:
+    """Lossless uint8 form of PNG-sourced [0, 1] float images (k/255 -> k):
+    a quarter of the host-to-device copy and of the device memory; the
+    training step casts the gathered minibatch back on the device."""
+    x = np.asarray(x)
+    if x.dtype == np.uint8:
+        return x
+    return np.uint8(np.round(np.clip(x, 0.0, 1.0) * 255.0))
 
 
 def nayar_separation(im_cb: np.ndarray, b: float = 0.9):
@@ -43,61 +51,23 @@ def nayar_separation(im_cb: np.ndarray, b: float = 0.9):
     return direct, indirect
 
 
-def multi_otsu(image_u8: np.ndarray, classes: int = 2) -> np.ndarray:
-    """Multi-Otsu thresholds of a uint8 image (classes-1 thresholds),
-    maximising the between-class variance by dynamic programming over
-    segment scores S[a, b] = m(a,b)^2 / w(a,b) of the 256-bin histogram."""
-    hist = np.bincount(image_u8.ravel(), minlength=256).astype(np.float64)
-    p = hist / hist.sum()
-    lv = np.arange(256, dtype=np.float64)
-    cum_p = np.concatenate([[0.0], np.cumsum(p)])
-    cum_m = np.concatenate([[0.0], np.cumsum(p * lv)])
-    a_idx = np.arange(256)[:, None]
-    b_idx = np.arange(256)[None, :]
-    w = cum_p[b_idx + 1] - cum_p[a_idx]
-    m = cum_m[b_idx + 1] - cum_m[a_idx]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        s = np.where((w > 0) & (b_idx >= a_idx), m * m / np.maximum(w, 1e-300),
-                     -np.inf)
-    best = s[0, :].copy()
-    args = []
-    th_idx = np.arange(255)[:, None]
-    t_idx = np.arange(256)[None, :]
-    for _ in range(classes - 1):
-        cand = np.where(th_idx < t_idx, best[:-1, None] + s[1:, :], -np.inf)
-        arg = np.argmax(cand, axis=0)
-        best = cand[arg, np.arange(256)]
-        args.append(arg)
-    ths = []
-    t = 255
-    for arg in reversed(args):
-        t = int(arg[t])
-        ths.append(t)
-    return np.array(sorted(ths))
-
-
-def _rgb2gray_u8(im: np.ndarray) -> np.ndarray:
-    """cv2.cvtColor(float32 RGB, RGB2GRAY) then np.uint8(x * 255)."""
-    im = np.clip(im, 0, 1).astype(np.float32)
-    gray = (im[..., 0] * np.float32(0.299) + im[..., 1] * np.float32(0.587)
-            + im[..., 2] * np.float32(0.114))
-    return np.uint8(gray * 255)
-
-
-def _gaussian_blur3_u8(im_u8: np.ndarray) -> np.ndarray:
-    """cv2.GaussianBlur(im, (3, 3), 1.5) on uint8: separable 8-bit
-    fixed-point weights, reflect-101 border, round half up."""
-    k = _GAUSS3_Q8
-    p = np.pad(im_u8.astype(np.int64), 1, mode="reflect")
-    r = k[0] * p[:, :-2] + k[1] * p[:, 1:-1] + k[2] * p[:, 2:]
-    c = k[0] * r[:-2] + k[1] * r[1:-1] + k[2] * r[2:]
-    return ((c + (1 << 15)) >> 16).astype(np.uint8)
-
-
-def direct_light_mask(im_direct: np.ndarray) -> np.ndarray:
-    """Binary direct-light mask [H, W] bool of an HxWx3 float image: the
-    mask half of ``threshold_im`` (ref ``img_proc.py:13-65``): gray, uint8,
-    3x3 Gaussian (sigma 1.5), 2-class multi-Otsu, digitize."""
-    smooth = _gaussian_blur3_u8(_rgb2gray_u8(im_direct))
-    ths = multi_otsu(smooth, classes=2)
-    return np.digitize(smooth, bins=ths) > 0
+def load_data(data_root: str, setup_name: str) -> dict:
+    """One setup's captures (ref ``load_data``, ``train_network.py:39-82``):
+    cam_scene [1,H,W,3], cam_train/cam_valid [N,H,W,3], prj_train/prj_valid
+    [N,Hp,Wp,3], mask [H,W,1] float, mask_corners (4 [x, y] in [-1, 1]),
+    setup_info."""
+    setup_path = join(data_root, "setups", setup_name)
+    setup_info = load_setup_info(setup_path)
+    cam_scene = imread_dir(join(setup_path, "cam/raw/ref"))[1:2]
+    cam_train = imread_dir(join(setup_path, "cam/raw/train"))
+    prj_train = imread_dir(join(data_root, "prj_share/train"))
+    cam_valid = imread_dir(join(setup_path, "cam/raw/test"))
+    prj_valid = imread_dir(join(data_root, "prj_share/test"),
+                           index=list(range(cam_valid.shape[0])))
+    im_direct, _ = nayar_separation(imread_dir(join(setup_path, "cam/raw/cb")),
+                                    b=0.9)
+    im_mask, _, mask_corners = threshold_im(im_direct)
+    return dict(cam_scene=cam_scene, cam_train=cam_train, cam_valid=cam_valid,
+                prj_train=prj_train, prj_valid=prj_valid,
+                mask=im_mask.astype(np.float32)[..., None],
+                mask_corners=mask_corners, setup_info=setup_info)

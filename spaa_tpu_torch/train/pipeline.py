@@ -1,12 +1,14 @@
-"""Trained-model bundle and the pretrained PCNet loader.
+"""Train, validate and load PCNet (counterpart of
+``spaa_tpu/train/pipeline.py``, reference ``train_network.py:476-594``).
 
-Counterpart of ``spaa_tpu/train/pipeline.py``: ``TrainedModel`` and the
-checkpoint-loading half of ``train_eval_pcnet``. Training comes with a
-later slice, so :func:`load_pretrained_pcnet` raises when the checkpoint is
-missing. It finds the checkpoint under the same config-string key
-``spaa_tpu`` writes: ``<data_root>/../checkpoint/<opt_to_string>.flax``,
-with ``num_train`` clamped to the setup's training-pair count and the batch
-size to ``num_train`` (``pipeline.py:134``).
+``train_eval_pcnet`` trains PCNet on every setup of a config (or loads its
+checkpoint with ``load_pretrained``), validates it, logs the metrics table
+and saves the inferred validation images. Checkpoints live under the same
+config-string key ``spaa_tpu`` uses, ``<data_root>/../checkpoint/
+<opt_to_string>.flax``, with ``num_train`` clamped to the setup's
+training-pair count and the batch size to ``num_train``
+(``pipeline.py:134``), in the same msgpack format, so either package reads
+the other's.
 """
 
 from __future__ import annotations
@@ -20,12 +22,20 @@ import numpy as np
 import torch
 
 from spaa_tpu_torch.models.pcnet import PCNet, PCNetCache
-from spaa_tpu_torch.train.data import (direct_light_mask, load_setup_info,
+from spaa_tpu_torch.models.warping_net import affine_from_corners
+from spaa_tpu_torch.ops import metrics as M
+from spaa_tpu_torch.train.data import (as_uint8_wire, direct_light_mask,
+                                       load_data, load_setup_info,
                                        nayar_separation)
+from spaa_tpu_torch.train.train import (compute_loss, make_evaluator,
+                                        make_pcnet_optimizer,
+                                        sample_batch_indices, train_model)
 from spaa_tpu_torch.utils import log as L
 from spaa_tpu_torch.utils.device import resolve_device
-from spaa_tpu_torch.utils.io import imread_dir
-from spaa_tpu_torch.weights import pcnet_state_dict
+from spaa_tpu_torch.utils.io import imread_dir, save_imgs
+from spaa_tpu_torch.utils.seed import reset_rng_seeds
+from spaa_tpu_torch.utils.vis import CurveLogger
+from spaa_tpu_torch.weights import pcnet_params, pcnet_state_dict
 
 
 @dataclasses.dataclass
@@ -47,70 +57,209 @@ class TrainedModel:
             return self.model.simplify_cache(self.cam_scene)
 
 
-def _count_files(path: str) -> int:
-    return len(os.listdir(path)) if os.path.isdir(path) else 0
+def _new_pcnet(model_name: str, cam_hw) -> PCNet:
+    return PCNet(out_size=tuple(int(v) for v in cam_hw),
+                 with_refine="w/o_refine" not in model_name,
+                 use_mask="no_mask" not in model_name,
+                 use_rough="no_rough" not in model_name)
+
+
+def _set_affine(model: PCNet, mask_corners, inverse: bool = False) -> PCNet:
+    """Initialise WarpingNet's affine from the mask's bounding box (ref
+    ``train_network.py:543-547``; ``inverse`` for CompenNet++)."""
+    with torch.no_grad():
+        model.warping_net.affine_mat.copy_(
+            affine_from_corners(mask_corners, inverse=inverse))
+    return model
+
+
+def _build_pcnet(model_name: str, cam_hw, mask_corners, rng_key) -> PCNet:
+    """A freshly initialised PCNet (``spaa_tpu``'s initial weights for the
+    root key ``rng_key``) with its affine set from the mask's corners."""
+    return _set_affine(_new_pcnet(model_name, cam_hw).init_weights(rng_key),
+                       mask_corners)
+
+
+def _run_cfg(cfg_default, num_train: int, num_avail: int, setup_name: str,
+             model_name: str, loss: str):
+    """One run's config: ``num_train`` clamped to the training pairs there
+    are (the reference assumes the 500-pair capture), the batch to
+    ``num_train``, the sweep lists replaced by this run's entries."""
+    cfg = cfg_default.copy()
+    cfg.num_train = min(int(num_train), int(num_avail))
+    cfg.batch_size = min(int(cfg.batch_size), cfg.num_train)
+    for key in ["num_train_list", "model_list", "loss_list", "setup_list"]:
+        if key in cfg:
+            del cfg[key]
+    cfg.model_name = model_name.replace("/", "_")
+    cfg.setup_name = setup_name.replace("/", "_")
+    cfg.loss = loss
+    return cfg
+
+
+def make_pcnet_loss(model: PCNet, scene: torch.Tensor, mask: torch.Tensor):
+    """PCNet's training loss ``loss_fn(prj, cam_gt, itr) -> (loss, l2)``:
+    l1+ssim against the capture, the SSIM term only after iteration 400
+    (the curriculum, ref ``train_network.py:299-303``); the scene stays
+    [1, H, W, 3]."""
+    def loss_fn(prj, cam_gt, itr):
+        return compute_loss(model(prj, scene, mask), cam_gt, "l1+ssim",
+                            ssim_weight=1.0 if itr > 400 else 0.0)
+    return loss_fn
+
+
+def _ckpt_path(cfg) -> str:
+    return L.checkpoint_path(join(cfg.data_root, "../checkpoint"),
+                             L.opt_to_string(cfg))
+
+
+def _load_weights(model: PCNet, ckpt: str, dtype=torch.float32) -> PCNet:
+    npdt = torch.empty((), dtype=dtype).numpy().dtype
+    model.load_state_dict(pcnet_state_dict(L.load_checkpoint(ckpt), npdt))
+    return model
+
+
+def _frozen(model: PCNet, device, dtype=torch.float32) -> PCNet:
+    model = model.to(device, dtype).eval()
+    for p in model.parameters():
+        p.requires_grad_(False)
+    return model
+
+
+def train_eval_pcnet(cfg_default, device=None):
+    """Train and evaluate PCNet on every setup of ``cfg_default`` (a
+    ``get_model_train_cfg`` config; ref ``train_network.py:476-594``).
+
+    With ``load_pretrained`` and a checkpoint under the run's key, the
+    checkpoint is loaded; otherwise PCNet trains from ``spaa_tpu``'s
+    initial weights under ``reset_rng_seeds(123)`` and the checkpoint is
+    written. Each run is
+    validated, its metrics appended to the log table and its inferred
+    validation images saved to ``cam/infer/test/<model_version>``; a mean
+    row per model closes the table. Returns ``(TrainedModel of the last
+    run, LogTable, cfg)``."""
+    dev = resolve_device(device)
+    data_root = cfg_default.data_root
+    table, log_txt = L.init_log_file(join(data_root, "../log"))
+    trained = cfg = None
+
+    for setup_name in cfg_default.setup_list:
+        data = load_data(data_root, setup_name)
+        cam_hw = data["cam_train"].shape[1:3]
+        scene = torch.from_numpy(data["cam_scene"]).to(dev)
+        mask = torch.from_numpy(data["mask"]).to(dev)
+        cam_valid = torch.from_numpy(data["cam_valid"]).to(dev)
+
+        for num_train in cfg_default.num_train_list:
+            for model_name in cfg_default.model_list:
+                for loss in cfg_default.loss_list:
+                    cfg = _run_cfg(cfg_default, num_train,
+                                   data["prj_train"].shape[0], setup_name,
+                                   model_name, loss)
+                    n = cfg.num_train
+                    model_version = (f"{cfg.model_name}_{loss}_{n}_"
+                                     f"{cfg.batch_size}_{cfg.max_iters}")
+                    key = reset_rng_seeds(123)
+                    model = _build_pcnet(model_name, cam_hw,
+                                         data["mask_corners"], key).to(dev)
+
+                    print("-" * 20 + " Training Options " + "-" * 20)
+                    print("\n".join(f"{k}: {v}" for k, v in cfg.items()))
+
+                    evaluator = make_evaluator(
+                        lambda x: model(x, scene, mask),
+                        as_uint8_wire(data["prj_valid"]),
+                        as_uint8_wire(data["cam_valid"]), dev)
+                    ckpt = _ckpt_path(cfg)
+                    if cfg.load_pretrained and os.path.exists(ckpt):
+                        print(f"----- Loading pretrained {model_name} -----")
+                        _load_weights(model, ckpt)
+                    else:
+                        print(f"----- Start training {model_name} -----")
+                        opt, sched = make_pcnet_optimizer(model, cfg)
+                        idx = sample_batch_indices(n, cfg.batch_size,
+                                                   cfg.max_iters)
+                        train_model(
+                            make_pcnet_loss(model, scene, mask), model, opt,
+                            sched,
+                            dict(inputs=as_uint8_wire(data["prj_train"][:n]),
+                                 targets=as_uint8_wire(data["cam_train"][:n])),
+                            idx, cfg, dev, valid_fn=evaluator,
+                            curve_logger=CurveLogger(join(
+                                data_root, "../log",
+                                f"curves_{cfg.model_name}_{cfg.setup_name}"
+                                ".jsonl")),
+                            resume_path=L.resume_path(
+                                join(data_root, "../checkpoint"),
+                                L.opt_to_string(cfg)))
+                        L.save_checkpoint(join(data_root, "../checkpoint"),
+                                          pcnet_params(model.state_dict()),
+                                          L.opt_to_string(cfg))
+
+                    model = _frozen(model, dev)
+                    _, _, _, cam_valid_infer = evaluator(return_images=True)
+                    vals = M.calc_img_dists(
+                        torch.from_numpy(cam_valid_infer).to(dev), cam_valid)
+                    table.append([setup_name, model_name, loss, n,
+                                  cfg.batch_size, cfg.max_iters, *vals])
+                    L.write_log_file(table, log_txt)
+
+                    infer_path = join(data_root, "setups", setup_name,
+                                      "cam/infer/test", model_version)
+                    save_imgs(cam_valid_infer, infer_path)
+                    print("Inferred camera-captured (relit) images saved to "
+                          + infer_path)
+                    trained = TrainedModel(model, mask, scene,
+                                           data["setup_info"], cfg,
+                                           model_name)
+
+    for model_name in cfg_default.model_list:
+        table.add_mean_row(model_name, len(cfg_default.setup_list))
+    print(table.to_string())
+    L.write_log_file(table, log_txt)
+    return trained, table, cfg
 
 
 def load_pretrained_pcnet(cfg_default, setup_name: str, device=None,
                           dtype=torch.float32) -> tuple:
-    """Load the trained PCNet of one setup, as ``train_eval_pcnet`` would
-    with ``load_pretrained`` and a checkpoint present.
+    """Load the trained PCNet of one setup as ``train_eval_pcnet`` would
+    with ``load_pretrained`` and a checkpoint present, reading only the
+    scene and the direct-light mask (no training data; the training-pair
+    count comes from the ``prj_share/train`` listing).
 
     ``cfg_default``: a ``get_model_train_cfg`` config with one entry in
     each of ``model_list``, ``num_train_list`` and ``loss_list``.
     Returns ``(TrainedModel, cfg)``; raises ``FileNotFoundError`` if the
-    checkpoint does not exist.
-    """
+    checkpoint does not exist."""
     dev = resolve_device(device)
     for key in ("model_list", "num_train_list", "loss_list"):
         if len(cfg_default[key]) != 1:
-            raise ValueError(f"{key} must hold one entry here; sweeping "
-                             "training variants comes with the training "
-                             "slice")
+            raise ValueError(f"{key} must hold one entry here; "
+                             "train_eval_pcnet sweeps training variants")
     data_root = cfg_default.data_root
     setup_path = join(data_root, "setups", setup_name)
     setup_info = load_setup_info(setup_path)
-
-    cam_ref = imread_dir(join(setup_path, "cam/raw/ref"))
-    cam_scene = cam_ref[1:2]    # ref/img_0002: lit by gray prj_brightness
+    cam_scene = imread_dir(join(setup_path, "cam/raw/ref"))[1:2]
     im_direct, _ = nayar_separation(imread_dir(join(setup_path, "cam/raw/cb")),
                                     b=0.9)
     mask = direct_light_mask(im_direct).astype(np.float32)[..., None]
 
-    cfg = cfg_default.copy()
-    num_train = min(int(cfg_default.num_train_list[0]),
-                    _count_files(join(data_root, "prj_share/train")))
-    cfg.num_train = num_train
-    cfg.batch_size = min(int(cfg.batch_size), num_train)
-    for key in ["num_train_list", "model_list", "loss_list", "setup_list"]:
-        if key in cfg:
-            del cfg[key]
+    train_dir = join(data_root, "prj_share/train")
+    num_avail = len(os.listdir(train_dir)) if os.path.isdir(train_dir) else 0
     model_name = cfg_default.model_list[0]
-    cfg.model_name = model_name.replace("/", "_")
-    cfg.setup_name = setup_name.replace("/", "_")
-    cfg.loss = cfg_default.loss_list[0]
-
-    ckpt = L.checkpoint_path(join(data_root, "../checkpoint"),
-                             L.opt_to_string(cfg))
+    cfg = _run_cfg(cfg_default, cfg_default.num_train_list[0], num_avail,
+                   setup_name, model_name, cfg_default.loss_list[0])
+    ckpt = _ckpt_path(cfg)
     if not os.path.exists(ckpt):
-        raise FileNotFoundError(
-            f"no trained {model_name} checkpoint at {ckpt}; training is not "
-            "ported yet (ROADMAP.md queue A item 3): train it with spaa_tpu")
+        raise FileNotFoundError(f"no trained {model_name} checkpoint at "
+                                f"{ckpt}; train it with train_eval_pcnet")
     print(f"----- Loading pretrained {model_name} from {ckpt} -----")
-
-    model = PCNet(out_size=tuple(cam_scene.shape[1:3]),
-                  with_refine="w/o_refine" not in model_name,
-                  use_mask="no_mask" not in model_name,
-                  use_rough="no_rough" not in model_name)
-    npdt = torch.empty((), dtype=dtype).numpy().dtype
-    model.load_state_dict(pcnet_state_dict(L.load_checkpoint(ckpt), npdt))
-    model = model.to(dev).eval()
-    for p in model.parameters():
-        p.requires_grad_(False)
+    model = _load_weights(_new_pcnet(model_name, cam_scene.shape[1:3]), ckpt,
+                          dtype)
+    model = _frozen(model, dev, dtype)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
-    trained = TrainedModel(model, t(mask), t(cam_scene), setup_info, cfg,
-                           model_name)
-    return trained, cfg
+    return TrainedModel(model, t(mask), t(cam_scene), setup_info, cfg,
+                        model_name), cfg

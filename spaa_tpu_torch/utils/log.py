@@ -1,20 +1,29 @@
-"""Config-string naming and the ``.flax`` checkpoint reader.
+"""Config-string naming, the ``.flax`` checkpoint codec, the training
+resume snapshot and the metrics log.
 
 Counterpart of ``spaa_tpu/utils/log.py``. The config string is a de-facto
 API (checkpoint and result directory names) and is kept byte-identical.
 Checkpoints are the msgpack files ``flax.serialization.to_bytes`` writes;
 the GPU machine has neither flax nor msgpack, so :func:`msgpack_restore`
-reads the subset flax emits: maps, strings, binaries, arrays, scalars and
-the array extension (ext type 1, itself a msgpack ``(shape, dtype name,
-C-order bytes)``).
+reads the subset flax emits (maps, strings, binaries, arrays, scalars and
+the array extensions: ext type 1 for an ndarray, 3 for a numpy scalar,
+each itself a msgpack ``(shape, dtype name, C-order bytes)``) and
+:func:`msgpack_pack` writes param trees: maps of ndarrays. The metrics
+log is the ``.txt`` half of ``spaa_tpu``'s pandas log (same CSV columns,
+``%.4f``); its ``.xlsx`` is not written.
 """
 
 from __future__ import annotations
 
+import csv
+import io
+import os
 import struct
+import time
 from os.path import abspath, join
 
 import numpy as np
+import torch
 
 
 def opt_to_string(opt) -> str:
@@ -27,6 +36,12 @@ def opt_to_string(opt) -> str:
 
 def checkpoint_path(checkpoint_dir: str, title: str) -> str:
     return abspath(join(checkpoint_dir, title + ".flax"))
+
+
+def resume_path(checkpoint_dir: str, title: str) -> str:
+    """Crash-recovery train-state file of a run (config-string keyed like
+    the final checkpoint; removed on completion)."""
+    return checkpoint_path(checkpoint_dir, title) + ".resume.npz"
 
 
 _EXT_NDARRAY = 1
@@ -125,3 +140,199 @@ def load_checkpoint(path: str):
     """Read a ``.flax`` checkpoint -> nested dicts of numpy arrays."""
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+def _header(n: int, fix: int, fix_max: int, wide: tuple) -> bytes:
+    """A msgpack length header: fix form up to ``fix_max``, else the first
+    of the 8/16/32-bit forms ``wide`` = (code8 or None, code16, code32)
+    that holds ``n``."""
+    if n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt, top in zip(wide, ("B", "H", "I"), (0xFF, 0xFFFF,
+                                                      0xFFFFFFFF)):
+        if code is not None and n <= top:
+            return bytes([code]) + struct.pack(">" + fmt, n)
+    raise ValueError("msgpack object too large")
+
+
+def _pack_int(v: int) -> bytes:
+    if 0 <= v <= 0x7F:
+        return bytes([v])
+    if -32 <= v < 0:
+        return struct.pack(">b", v)
+    if v >= 0:
+        for code, fmt, top in ((0xCC, "B", 0xFF), (0xCD, "H", 0xFFFF),
+                               (0xCE, "I", 0xFFFFFFFF), (0xCF, "Q", 2**64 - 1)):
+            if v <= top:
+                return bytes([code]) + struct.pack(">" + fmt, v)
+    for code, fmt, lo in ((0xD0, "b", -2**7), (0xD1, "h", -2**15),
+                          (0xD2, "i", -2**31), (0xD3, "q", -2**63)):
+        if v >= lo:
+            return bytes([code]) + struct.pack(">" + fmt, v)
+    raise ValueError("integer out of msgpack range")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    n = len(payload)
+    head = (bytes([fixext[n]]) if n in fixext
+            else _header(n, 0, -1, (0xC7, 0xC8, 0xC9)))
+    return head + struct.pack(">b", code) + payload
+
+
+def _pack(obj, out: list) -> None:
+    if isinstance(obj, int) and not isinstance(obj, bool):
+        out.append(_pack_int(obj))
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        out.append(_header(len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB)) + b)
+    elif isinstance(obj, (bytes, bytearray)):
+        out.append(_header(len(obj), 0, -1, (0xC4, 0xC5, 0xC6)) + bytes(obj))
+    elif isinstance(obj, (list, tuple)):
+        out.append(_header(len(obj), 0x90, 15, (None, 0xDC, 0xDD)))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        out.append(_header(len(obj), 0x80, 15, (None, 0xDE, 0xDF)))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, np.ndarray):
+        payload = msgpack_pack((obj.shape, obj.dtype.name, obj.tobytes("C")))
+        out.append(_pack_ext(_EXT_NDARRAY, payload))
+    else:
+        raise TypeError(f"cannot msgpack a {type(obj).__name__}")
+
+
+def msgpack_pack(obj) -> bytes:
+    """Encode nested dicts (string keys) of numpy arrays as
+    ``flax.serialization.to_bytes`` does (msgpack with ``use_bin_type``,
+    keys in the dicts' own order)."""
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)
+
+
+def save_checkpoint(checkpoint_dir: str, params: dict, title: str) -> str:
+    """Write a param tree (nested dicts of numpy arrays) as the ``.flax``
+    checkpoint ``spaa_tpu`` writes (ref ``utils.py:717-721``)."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    path = checkpoint_path(checkpoint_dir, title)
+    with open(path, "wb") as f:
+        f.write(msgpack_pack(params))
+    print(f"Checkpoint saved to {path}\n")
+    return path
+
+
+# ---------------------------------------------------------- resume snapshot
+_STATE_FORMAT = "spaa_tpu_torch train state 1"
+
+
+def save_train_state(path: str, model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer, itr: int,
+                     fingerprint: int) -> None:
+    """Atomic (model, optimizer moments, iteration) snapshot, with the
+    fingerprint of the training data and index plan. An npz of the port's
+    own layout: ``model:<name>``, ``opt:<param index>:<key>``."""
+    payload = {"format": np.array(_STATE_FORMAT), "iter": np.int64(itr),
+               "fingerprint": np.uint64(fingerprint)}
+    for name, t in model.state_dict().items():
+        payload[f"model:{name}"] = t.detach().cpu().numpy()
+    for idx, st in optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            payload[f"opt:{idx}:{k}"] = torch.as_tensor(v).cpu().numpy()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:      # a file object: savez adds no suffix
+        np.savez(f, **payload)
+    os.replace(tmp, path)           # never leave a torn file behind
+
+
+def load_train_state(path: str):
+    """Read a :func:`save_train_state` snapshot: ``(model state_dict,
+    optimizer state by parameter index, iteration, fingerprint)``. Raises
+    ``ValueError`` for a file of another layout (e.g. ``spaa_tpu``'s)."""
+    with np.load(path) as data:
+        if "format" not in data.files or str(data["format"]) != _STATE_FORMAT:
+            raise ValueError(f"{path} is not a spaa_tpu_torch train state")
+        model_sd = {k[len("model:"):]: torch.from_numpy(data[k])
+                    for k in data.files if k.startswith("model:")}
+        opt_state: dict = {}
+        for k in data.files:
+            if k.startswith("opt:"):
+                _, idx, key = k.split(":")
+                opt_state.setdefault(int(idx), {})[key] = \
+                    torch.from_numpy(data[k])
+        return model_sd, opt_state, int(data["iter"]), int(data["fingerprint"])
+
+
+# ------------------------------------------------------------- metrics log
+LOG_COLUMNS = ["Setup", "Model", "Loss", "Num train", "Batch", "Iters",
+               "PSNR", "RMSE", "SSIM", "L2", "L-inf", "dE"]
+
+
+class LogTable:
+    """Rows of the training metrics table (the reference's pandas frame,
+    ``utils.py:678-694``): a numeric column prints as integers until a
+    float enters it (a metric, or a mean row), then every value ``%.4f``,
+    and an empty cell stays empty, as ``DataFrame.to_csv`` writes them."""
+
+    def __init__(self):
+        self.rows: list = []
+
+    def append(self, row) -> None:
+        if len(row) != len(LOG_COLUMNS):
+            raise ValueError(f"a log row has {len(LOG_COLUMNS)} values")
+        self.rows.append(list(row))
+
+    def add_mean_row(self, model_name: str, n_setups: int) -> None:
+        """Per-model mean of the numeric columns (ref
+        ``train_network.py:584-586``)."""
+        sel = [r for r in self.rows if r[1] == model_name]
+        mean = [None] * len(LOG_COLUMNS)
+        for c in range(3, len(LOG_COLUMNS)):
+            vals = [float(r[c]) for r in sel if r[c] is not None]
+            mean[c] = sum(vals) / len(vals) if vals else None
+        mean[0], mean[1] = f"[mean]_{n_setups}_setups", model_name
+        self.rows.append(mean)
+
+    def _cells(self) -> list:
+        floats = [any(isinstance(r[c], float) for r in self.rows)
+                  for c in range(len(LOG_COLUMNS))]
+
+        def cell(v, c):
+            if v is None:
+                return ""
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                return f"{v:.4f}" if floats[c] else str(v)
+            return str(v)
+
+        return [[cell(v, c) for c, v in enumerate(r)] for r in self.rows]
+
+    def to_csv(self) -> str:
+        buf = io.StringIO()
+        w = csv.writer(buf, lineterminator="\n")
+        w.writerow(LOG_COLUMNS)
+        w.writerows(self._cells())
+        return buf.getvalue()
+
+    def to_string(self) -> str:
+        rows = [LOG_COLUMNS] + self._cells()
+        widths = [max(len(r[c]) for r in rows) for c in range(len(LOG_COLUMNS))]
+        return "\n".join("  ".join(v.rjust(wd) for v, wd in zip(r, widths))
+                         for r in rows)
+
+
+def init_log_file(log_dir: str):
+    """A fresh :class:`LogTable` and its timestamped ``.txt`` path (ref
+    ``utils.py:678-684``)."""
+    os.makedirs(log_dir, exist_ok=True)
+    stamp = time.strftime("%Y-%m-%d_%H_%M_%S", time.localtime())
+    return LogTable(), join(log_dir, stamp + ".txt")
+
+
+def write_log_file(table: LogTable, log_txt: str) -> None:
+    """Ref ``utils.py:687-694``: the table as CSV, floats ``%.4f``."""
+    with open(log_txt, "w") as f:
+        f.write(table.to_csv())
+    print(f"Log file is saved to {log_txt}")

@@ -1,6 +1,8 @@
 """Port check (a): every module of ``spaa_tpu_torch`` imports without JAX,
-``spaa_tpu`` or a host package the GPU machine lacks, and an entry point
-called without ``device`` runs on CUDA or raises where there is none."""
+``spaa_tpu`` or a host package the GPU machine lacks, an entry point
+called without ``device`` runs on CUDA or raises where there is none, and
+what is not ported yet raises ``NotImplementedError`` naming its
+ROADMAP.md item."""
 
 import json
 import os
@@ -8,6 +10,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,7 +18,10 @@ import spaa_tpu_torch
 from spaa_tpu_torch.attack.orchestrate import (get_attacker_cfg,
                                                run_projector_based_attack)
 from spaa_tpu_torch.models.classifiers import Classifier
+from spaa_tpu_torch.train.pipeline import train_eval_pcnet
+from spaa_tpu_torch.train.train import get_model_train_cfg
 from spaa_tpu_torch.utils.device import resolve_device
+from spaa_tpu_torch.utils.imgproc_host import threshold_im
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "spaa_tpu", "cv2", "PIL",
@@ -52,11 +58,15 @@ def test_entry_points_default_to_cuda(tmp_path):
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        Classifier("resnet18")
+    for name in ("resnet18", "vgg16", "inception_v3"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Classifier(name)
     cfg = get_attacker_cfg("SPAA", str(tmp_path), ["none"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_projector_based_attack(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_eval_pcnet(get_model_train_cfg(["PCNet"], str(tmp_path),
+                                             ["none"]))
     assert resolve_device("cpu").type == "cpu"
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -67,6 +77,5 @@ def test_unported_parts_raise_not_implemented(tmp_path):
         cfg = get_attacker_cfg(name, str(tmp_path), ["none"])
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run_projector_based_attack(cfg, device="cpu")
-    for name in ("vgg16", "inception_v3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Classifier(name, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        threshold_im(np.ones((4, 4, 3), np.float32), compensation=True)
