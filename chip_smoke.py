@@ -38,11 +38,24 @@ Phases, each printed on its own lines:
    deterministic kernels: with the default ones, rounding that differs
    from run to run sends some runs into a mode that stays near 22 dB, so
    only a run that repeats bit for bit can be held to the floor;
-7. main path, VGG-16 (224x224) and Inception-v3 (299x299):
-   ``run_projector_based_attack`` with ``load_pretrained`` on the trained
-   checkpoint, the full 132-image x 50-iteration sweep per classifier:
-   s/config, ms/iteration, peak memory, 264 PNGs, finite outputs in
-   [0, 1], 50 + 50 warp launches each.
+7. main path on the trained setup, ResNet-18 (224x224), VGG-16 (224x224)
+   and Inception-v3 (299x299): ``run_projector_based_attack`` with
+   ``load_pretrained`` on the trained checkpoint, the full 132-image x
+   50-iteration sweep per classifier: s/config, ms/iteration, peak memory,
+   264 PNGs, finite outputs in [0, 1], 50 + 50 warp launches each;
+8. pipeline: as subprocesses, ``python -m spaa_tpu_torch.main --steps 6,7``
+   (the replay of the 396 adversarial projections through the port's
+   ``SimProCams``, then the SPAA summarize: 36 rows of 71 columns, 396
+   montages) and ``python -m spaa_tpu_torch.reproduce_paper_results --sim
+   --summarize-only --keep-existing-imgs`` (``stats_all`` and the pivot
+   table); their replay and summarize seconds, summarize phases and peak
+   device memory; checks of row, column and montage counts, finite
+   metrics and success rates in [0, 1]; then the ResNet-18 rows
+   summarized again in this process on the card and on the CPU from the
+   same PNGs: validation and stealth metrics within 1e-4 (the validation
+   images of the 200-iteration PCNet are linked under the 2000-iteration
+   key summarize reads), success rates printed side by
+   side (near-ties may flip a top-k between cuDNN and the CPU).
 
 Before the last line it prints the kernels as one JSON object and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -461,7 +474,7 @@ def phase_sim(tmp):
     from spaa_tpu_torch.utils.io import imread_dir
     from spaa_tpu_torch.utils.sim_procams import (DEFAULT_SIM_SETUP_INFO,
                                                   SimProCams)
-    data = join(tmp, "sim", "data")
+    data = join(tmp, "sim", "sim_benchmark")
     t0 = time.time()
     SimProCams(dict(DEFAULT_SIM_SETUP_INFO), seed=7).make_setup(
         data, "sim_setup", num_train=NUM_TRAIN, num_test=NUM_VALID)
@@ -657,6 +670,167 @@ def phase_attack(data_root, dev, classifier):
                 peak_bytes=seen["peak"], launches=launches)
 
 
+def run_child(args, what, timeout=900):
+    """Run ``python -m <args>`` from the checkout; echo its output; fail on
+    a non-zero exit. Returns the output lines."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout,
+                          env={**os.environ, "PYTHONPATH": REPO})
+    lines = (proc.stdout + proc.stderr).splitlines()
+    for line in lines:
+        log(f"[pipeline]   | {line[:300]}")
+    log(f"[pipeline] {what}: exit code {proc.returncode} after "
+        f"{time.time() - t0:.3f} s wall")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} failed with exit code "
+                             f"{proc.returncode}")
+    return lines
+
+
+def _grep(lines, pattern):
+    return [m for m in (re.search(pattern, line) for line in lines) if m]
+
+
+def check_stats(table, n_rows):
+    """Row and column counts, finite metrics (a PSNR of +inf only where its
+    RMSE is 0: identical images), success rates in [0, 1]."""
+    from spaa_tpu_torch.attack.summarize import COLUMNS
+    if table.columns != COLUMNS or len(table) != n_rows:
+        raise AssertionError(f"stats table of {len(table)} rows x "
+                             f"{len(table.columns)} columns, expected "
+                             f"{n_rows} x {len(COLUMNS)}")
+    for c in COLUMNS[5:]:
+        vals = table[c]
+        if "top-1" in c or "top-5" in c:
+            ok = all(0.0 <= v <= 1.0 for v in vals)
+        elif c.endswith("PSNR"):
+            rmse = table[c[:-4] + "RMSE"]
+            ok = all(math.isfinite(v) or (v == math.inf and r == 0.0)
+                     for v, r in zip(vals, rmse))
+        else:
+            ok = all(math.isfinite(v) for v in vals)
+        if not ok:
+            raise AssertionError(f"column {c} out of range: {vals}")
+
+
+def resummarize_resnet18(sim_root, dev, tmp):
+    """The ResNet-18 rows summarized again in this process, on the card and
+    on the CPU, each on a copy of the setup whose PNGs are hard links (the
+    montages exist, so none is drawn)."""
+    from spaa_tpu_torch.attack.summarize import summarize_single_attacker
+    skip = shutil.ignore_patterns("stats*", "pivot*")
+    out = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        root = join(tmp, f"resummarize_{name}")
+        shutil.copytree(join(sim_root, "setups", "sim_setup"),
+                        join(root, "setups", "sim_setup"), ignore=skip,
+                        copy_function=os.link)
+        t0 = time.time()
+        out[name] = summarize_single_attacker(
+            "SPAA", root, ["sim_setup"], classifier_names=["resnet18"],
+            recreate_imgs=False, device=device)
+        log(f"[pipeline] ResNet-18 rows re-summarized on {name}: "
+            f"{time.time() - t0:.3f} s")
+    return out
+
+
+def phase_pipeline(sim_root, dev):
+    """Replay, per-setup summarize and the cross-setup tables through the
+    port's own entry points, then the card against the CPU."""
+    from spaa_tpu_torch.attack import orchestrate as O
+    from spaa_tpu_torch.attack.summarize import COLUMNS
+    from spaa_tpu_torch.utils.table import read_csv
+    from spaa_tpu_torch.utils.xlsx import read_xlsx
+
+    setups = join(sim_root, "setups")
+    # summarize validates the PCNet of the default 2000-iteration key;
+    # [train] cut it to TRAIN_ITERS, so its validation images are linked
+    # under the key summarize reads
+    test_dir = join(setups, "sim_setup", "cam", "infer", "test")
+    trained = f"PCNet_l1+ssim_{NUM_TRAIN}_24_{TRAIN_ITERS}"
+    read_key = O.to_attacker_cfg_str("SPAA")[1]
+    os.symlink(trained, join(test_dir, read_key))
+    log(f"[pipeline] validation images of {trained} linked as {read_key}")
+    lines = run_child(["spaa_tpu_torch.main", "--data-root", sim_root,
+                       "--setup-name", "sim_setup", "--steps", "6,7"],
+                      "main --steps 6,7")
+    step_s = {int(m.group(1)): float(m.group(2))
+              for m in _grep(lines, r"^\[step (\d+)\] ([0-9.]+) s")}
+    phases = [m.group(1) for m in _grep(lines, r"^\[summarize\] (valid=.*)")]
+    drain = [m.group(1) for m in _grep(lines,
+                                       r"^\[summarize\] montage drain: (.*)")]
+    peak = [m.group(1) for m in _grep(lines, r"^\[peak device memory\] (.*)")]
+    log(f"[pipeline] replay of the 396 adversarial projections: "
+        f"{step_s[6]:.3f} s; SPAA summarize of 1 setup: {step_s[7]:.3f} s "
+        f"({phases[0]}; montage drain {drain[0]}); peak device memory "
+        f"{peak[0]}")
+    phase_json = join(dirname(sim_root), "phases.json")
+    lines = run_child(["spaa_tpu_torch.reproduce_paper_results", "--sim",
+                       "--data-root", dirname(sim_root), "--attackers",
+                       "SPAA", "--summarize-only", "--keep-existing-imgs",
+                       "--phase-json", phase_json],
+                      "reproduce_paper_results --summarize-only")
+    rec = json.load(open(phase_json))
+    phases = [m.group(1) for m in _grep(lines, r"^\[summarize\] (valid=.*)")]
+    peak = [m.group(1) for m in _grep(lines, r"^\[peak device memory\] (.*)")]
+    log(f"[pipeline] reproduce_paper_results --summarize-only: phases "
+        f"{rec['phases']}, {rec['stats_all_rows']} rows; summarize "
+        f"({phases[0]}); peak device memory {peak[0]}")
+
+    stats_all = read_csv(join(setups, "stats_all.txt"), sep="\t")
+    check_stats(stats_all, 36)
+    n_montages = sum(len([f for f in files if f.endswith(".png")])
+                     for _, _, files in os.walk(join(setups, "sim_setup",
+                                                     "ret")))
+    pivot = read_xlsx(join(setups, "pivot_table_all.xlsx"))
+    valid = {c: stats_all[c][0] for c in COLUMNS[11:17]}
+    log(f"[pipeline] stats_all.txt {len(stats_all)} rows x "
+        f"{len(stats_all.columns)} columns; {n_montages} montages; "
+        f"pivot_table_all.xlsx {len(pivot) - 1} rows x {len(pivot[0])} "
+        f"columns; validation bundle {valid}")
+    if not all(v > 0.0 for v in valid.values()):
+        raise AssertionError(f"the validation bundle did not run: {valid}")
+    if n_montages != 396 or len(pivot) - 1 != 36:
+        raise AssertionError(f"{n_montages} montages (396 expected), "
+                             f"{len(pivot) - 1} pivot rows (36 expected)")
+
+    again = resummarize_resnet18(sim_root, dev, dirname(sim_root))
+    card, cpu = again["card"], again["cpu"]
+    check_stats(card, 12)
+    check_stats(cpu, 12)
+    want = [r for r in stats_all.typed_rows() if r[4] == "resnet18"]
+    metrics = COLUMNS[11:]          # validation bundle and stealth metrics
+    rates = COLUMNS[5:11]
+    worst, worst_text = 0.0, 0.0
+    for c in metrics:
+        j = COLUMNS.index(c)
+        for a, b, t in zip(card[c], cpu[c], (r[j] for r in want)):
+            if a == b:        # equal, infinities included
+                continue
+            worst = max(worst, abs(a - b))
+            worst_text = max(worst_text, abs(float("%.4f" % a) - t))
+    log(f"[pipeline] ResNet-18 validation and stealth columns "
+        f"({len(metrics)} x 12 cells): "
+        f"max |card - CPU| {worst:.3e} (tolerance 1e-4); the card's, "
+        f"printed %.4f, against stats_all.txt: max {worst_text:.3e} "
+        f"(tolerance 1.5e-4: one rounding step)")
+    if not worst <= 1e-4:
+        raise AssertionError(f"card and CPU metrics differ by {worst}")
+    if not worst_text <= 1.5e-4:
+        raise AssertionError(f"the card's recomputation differs from "
+                             f"stats_all.txt by {worst_text}")
+    differ = 0
+    for k in range(12):
+        a = [card[c][k] for c in rates]
+        b = [cpu[c][k] for c in rates]
+        differ += sum(x != y for x, y in zip(a, b))
+        log(f"[pipeline] {card['Stealth_loss'][k]}/{card['d_thr'][k]} "
+            f"success rates card {a} CPU {b}")
+    log(f"[pipeline] success-rate cells that differ card vs CPU: {differ} of "
+        f"{12 * len(rates)}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -683,7 +857,8 @@ def main():
         sim_root, _ = phase_sim(tmp)
         phase_train(sim_root, dev)
         sweeps = [res] + [phase_attack(sim_root, dev, name)
-                          for name in ("vgg16", "inception_v3")]
+                          for name in ("resnet18", "vgg16", "inception_v3")]
+        phase_pipeline(sim_root, dev)
     for r in rows:
         r["launches"] = sum(sw["launches"][r["name"]] for sw in sweeps)
     log(f"[done] {time.time() - t_start:.1f} s")

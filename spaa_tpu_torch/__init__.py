@@ -2,22 +2,25 @@
 
 A port of ``spaa_tpu`` (JAX/Flax/Pallas on a TPU), which stays in the
 repository as the reference. This package holds the SPAA attacker from
-captures to adversarial images: the analytic ProCams simulator that writes
+captures to the paper's table: the analytic ProCams simulator that writes
 a setup, PCNet training and validation, the frozen PCNet with its baked
 warp grid, the ResNet-18 / VGG-16 / Inception-v3 classify pipelines, the
-CIEDE2000 colour losses and the fused SPAA sweep. The one TPU kernel on
-that path, the fixed-grid bilinear warp, is a CUDA C++ kernel written for
-``sm_90a`` (``csrc/fixed_warp.cu``).
+CIEDE2000 colour losses, the fused SPAA sweep, the replay of its
+projections and the summarize into stats tables, montages and the pivot
+(``main`` and ``reproduce_paper_results`` are the entry scripts). The one
+TPU kernel on that path, the fixed-grid bilinear warp, is a CUDA C++
+kernel written for ``sm_90a`` (``csrc/fixed_warp.cu``).
 
 Ground rules:
 
 - No JAX and no ``spaa_tpu``. Nothing here imports ``jax``, ``flax`` or any
   module of ``spaa_tpu``; what it needs of them is copied.
 - No host packages the GPU machine lacks: no ``cv2``, ``PIL``, ``yaml``,
-  ``pandas``, ``flax`` or ``msgpack``. PNG, the flat ``setup_info.yml``
-  and the ``.flax`` checkpoint are read and written with the standard
-  library and numpy, and OpenCV's image operations are reproduced in
-  numpy.
+  ``pandas``, ``flax`` or ``msgpack``. PNG, the flat ``setup_info.yml``,
+  the ``.flax`` checkpoint, the stats tables and ``.xlsx`` are read and
+  written with the standard library and numpy; OpenCV's image operations
+  are reproduced in numpy, and Pillow's label text from a committed glyph
+  atlas.
 - Module names follow ``spaa_tpu`` so each piece has an obvious
   counterpart; inside, the idiom is PyTorch's: ``nn.Module``s, plain
   functions on tensors, an explicit ``device``, explicit

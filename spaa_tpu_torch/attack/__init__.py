@@ -1,1 +1,21 @@
-"""SPAA attacker and the sweep orchestration."""
+"""Attackers and benchmark orchestration (counterpart of
+``spaa_tpu/attack/__init__.py``, for the parts that are ported: SPAA,
+replay and summarize)."""
+
+from spaa_tpu_torch.attack.spaa import (SpaaConfig, spaa,
+                                        spaa_attack_batched, stealth_weights)
+from spaa_tpu_torch.attack.orchestrate import (ATTACKER_NAMES,
+                                               get_attacker_cfg,
+                                               project_capture_real_attack,
+                                               run_projector_based_attack,
+                                               to_attacker_cfg_str)
+from spaa_tpu_torch.attack.summarize import (attack_results,
+                                             summarize_all_attackers,
+                                             summarize_single_attacker)
+
+__all__ = [
+    "SpaaConfig", "spaa", "spaa_attack_batched", "stealth_weights",
+    "ATTACKER_NAMES", "get_attacker_cfg", "project_capture_real_attack",
+    "run_projector_based_attack", "to_attacker_cfg_str", "attack_results",
+    "summarize_all_attackers", "summarize_single_attacker",
+]

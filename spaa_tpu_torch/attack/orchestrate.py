@@ -5,8 +5,10 @@
 Same attacker names, sweep grid and output layout
 (``prj/adv/<attacker_cfg>/<loss>/<d_thr>/<classifier>`` and
 ``cam/infer/adv/...``). Per classifier, the (stealth loss x d_thr) grid
-runs as one batched attack of 12 x 11 = 132 images. PerC-AL+CompenNet++
-and One-pixel DE are not ported yet (ROADMAP.md queue A items 5 and 6).
+runs as one batched attack of 12 x 11 = 132 images;
+:func:`project_capture_real_attack` replays the results through ProCams.
+PerC-AL+CompenNet++ and One-pixel DE are not ported yet (ROADMAP.md queue
+A items 5 and 6).
 """
 
 from __future__ import annotations
@@ -300,3 +302,27 @@ def run_projector_based_attack(cfg, weights_dir: Optional[str] = None,
               f"generated adversarial projections in "
               f"{join(setup_path, 'prj/adv', attacker_cfg_str)}")
     return cfg
+
+
+def project_capture_real_attack(cfg, procams) -> None:
+    """Replay the adversarial projections of one setup through (simulated)
+    ProCams into ``cam/raw/adv/<cfg>`` (ref
+    ``projector_based_attack.py:151-166``). ``procams``: any object with
+    ``project_capture_data`` (``utils.sim_procams.SimProCams``)."""
+    attacker_name = cfg.attacker_name
+    assert attacker_name in ["SPAA", "PerC-AL+CompenNet++"], \
+        f"{attacker_name} not supported, One-pixel_DE does not use this " \
+        "function!"
+    assert len(cfg.setup_list) == 1
+
+    setup_path = join(cfg.data_root, "setups", cfg.setup_list[0])
+    setup_info = load_setup_info(setup_path)
+    attacker_cfg_str = to_attacker_cfg_str(attacker_name)[0]
+    for stealth_loss in cfg.stealth_losses:
+        for d_thr in cfg.d_threshes:
+            for classifier_name in cfg.classifier_names:
+                folder = join(attacker_cfg_str, stealth_loss, str(d_thr),
+                              classifier_name)
+                procams.project_capture_data(
+                    join(setup_path, "prj/adv", folder),
+                    join(setup_path, "cam/raw/adv", folder), setup_info)

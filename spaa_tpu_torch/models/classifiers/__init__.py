@@ -32,6 +32,7 @@ PRETRAINED_FILES = {"resnet18": "resnet18-5c106cde.pth",
                     "vgg16": "vgg16-397923af.pth",
                     "inception_v3": "inception_v3_google-0cc3c7bd.pth"}
 _MODELS = {"resnet18": ResNet18, "vgg16": VGG16, "inception_v3": InceptionV3}
+CLASSIFY_CHUNK = 64     # images a classification pass
 
 _REPO = os.path.abspath(join(os.path.dirname(os.path.abspath(__file__)),
                              "..", "..", ".."))
@@ -103,11 +104,16 @@ class Classifier:
         return make_logits_fn(self.net, crop_sz)(im)
 
     def classify(self, im, crop_sz=(240, 240)):
+        """Large stacks (summarize classifies whole sweeps) run
+        ``CLASSIFY_CHUNK`` images at a time, to bound the activations' peak
+        memory; uint8 stacks are cast to float chunk by chunk."""
+        chunk = CLASSIFY_CHUNK
         im = torch.as_tensor(im, device=self.device)
-        if im.dtype == torch.uint8:
-            im = im.float() / 255.0
+        if im.ndim == 3:
+            im = im[None]
         with torch.no_grad():
-            raw = self.logits(im, crop_sz)
+            raw = torch.cat([self.logits(_float01(im[s:s + chunk]), crop_sz)
+                             for s in range(0, im.shape[0], chunk)])
         p = torch.softmax(raw, dim=1).cpu().numpy()
         if self.sort_results:
             idx = np.argsort(-p, axis=1, kind="stable")
@@ -119,6 +125,42 @@ class Classifier:
 
     def __call__(self, im, crop_sz=(240, 240)):
         return self.classify(im, crop_sz)
+
+
+def _float01(im: torch.Tensor) -> torch.Tensor:
+    return im.float() / 255.0 if im.dtype == torch.uint8 else im
+
+
+def params_source(model_name: str, weights_dir: Optional[str] = None) -> str:
+    """Where :func:`build_classifier` gets this model's weights: 'pth' (the
+    pinned torchvision file) or 'random'."""
+    if model_name not in _MODELS:
+        raise ValueError(f"{model_name} not supported")
+    pth = join(weights_dir or DEFAULT_WEIGHTS_DIR,
+               PRETRAINED_FILES[model_name])
+    return "pth" if os.path.exists(pth) else "random"
+
+
+def query_multi_classifiers(im, cp_sz, classifier_names, imagenet_labels,
+                            weights_dir=None, device=None):
+    """Ref ``classifier.py:97-106``: each classifier's top-1 label and
+    confidence on ``im`` (the agreement check across the zoo)."""
+    labels, confidence = [], []
+    for name in classifier_names:
+        clf = Classifier(name, weights_dir, sort_results=False,
+                         device=device)
+        _, p, _ = clf(im, cp_sz)
+        labels.append(imagenet_labels[int(p.argmax())])
+        confidence.append(float(p.max()))
+        print(f"{name:<15}: {labels[-1]:<20} ({confidence[-1]:.2f})")
+    return labels, confidence
+
+
+def idx_to_label(imgnet_labels: dict, idx) -> list:
+    """ImageNet labels for a list/array of positional indices
+    (ref ``utils.py:744-746``)."""
+    values = list(imgnet_labels.values())
+    return [values[int(x)] for x in idx]
 
 
 def load_imagenet_labels(filename: str) -> dict:

@@ -137,10 +137,10 @@ def train_eval_pcnet(cfg_default, device=None):
     validated, its metrics appended to the log table and its inferred
     validation images saved to ``cam/infer/test/<model_version>``; a mean
     row per model closes the table. Returns ``(TrainedModel of the last
-    run, LogTable, cfg)``."""
+    run, metrics Table, cfg)``."""
     dev = resolve_device(device)
     data_root = cfg_default.data_root
-    table, log_txt = L.init_log_file(join(data_root, "../log"))
+    table, log_txt, log_xls = L.init_log_file(join(data_root, "../log"))
     trained = cfg = None
 
     for setup_name in cfg_default.setup_list:
@@ -202,7 +202,7 @@ def train_eval_pcnet(cfg_default, device=None):
                         torch.from_numpy(cam_valid_infer).to(dev), cam_valid)
                     table.append([setup_name, model_name, loss, n,
                                   cfg.batch_size, cfg.max_iters, *vals])
-                    L.write_log_file(table, log_txt)
+                    L.write_log_file(table, log_txt, log_xls)
 
                     infer_path = join(data_root, "setups", setup_name,
                                       "cam/infer/test", model_version)
@@ -214,9 +214,9 @@ def train_eval_pcnet(cfg_default, device=None):
                                            model_name)
 
     for model_name in cfg_default.model_list:
-        table.add_mean_row(model_name, len(cfg_default.setup_list))
+        L.add_mean_row(table, model_name, len(cfg_default.setup_list))
     print(table.to_string())
-    L.write_log_file(table, log_txt)
+    L.write_log_file(table, log_txt, log_xls)
     return trained, table, cfg
 
 

@@ -1,5 +1,5 @@
-"""Host-side image processing without OpenCV (counterpart of
-``spaa_tpu/utils/imgproc_host.py:22-141``).
+"""Host-side image processing without OpenCV or Pillow (counterpart of
+``spaa_tpu/utils/imgproc_host.py``).
 
   - ``threshold_im``: direct-light mask (gray, uint8, 3x3 Gaussian, 2-class
     multi-Otsu), its ROI (the filled convex hull of the foreground) and the
@@ -7,12 +7,23 @@
     ``img_proc.py:13-65``). The mask half reproduces cv2's uint8
     ``GaussianBlur`` in 8-bit fixed point, so it is bit-exact; the ROI
     follows cv2's ``fillConvexPoly`` (LINE_8 outline, fixed-point scan).
-  - ``checkerboard``: the MATLAB-style calibration pattern.
+  - ``checkerboard``, ``create_gray_pattern``, ``create_number_pattern``:
+    calibration and sync-test patterns.
+  - montage helpers for the result summaries: ``make_grid``,
+    ``resize_area_np``, ``to_pseudocolor`` (OpenCV's JET table, committed),
+    ``insert_texts`` (Pillow's rendering of ``spaa_tpu``'s label font,
+    from a committed glyph atlas).
 """
 
 from __future__ import annotations
 
+import functools
+import json
+import os
+
 import numpy as np
+
+from spaa_tpu_torch.ops.image import _area_matrix
 
 # cv2.getGaussianKernel(3, 1.5) in OpenCV's 8-bit fixed point (weights
 # scaled by 256 and rounded; they sum to 256): the bit-exact path
@@ -258,3 +269,271 @@ def checkerboard(*args) -> np.ndarray:
         mid = out.shape[1] // 2 + 1
         out[:, mid:] = np.maximum(out[:, mid:] - 0.3, 0)
     return out.astype(np.float64)
+
+
+def create_gray_pattern(w: int, h: int) -> np.ndarray:
+    """Gray-code structured-light patterns -> (N, h, w, 3) uint8
+    (ref ``img_proc.py:135-171``; generated by the capture workflow,
+    unused by SPAA itself)."""
+    nbits = np.ceil(np.log2([w, h])).astype(int)
+    offset = (2 ** nbits - np.array([w, h])) // 2
+
+    c, r = np.meshgrid(np.arange(w), np.arange(h))
+    coords = [c + offset[0], r + offset[1]]
+    bin_patterns = []
+    for axis in range(2):
+        v = coords[axis].astype(np.uint16)
+        bits = ((v[..., None] >> np.arange(nbits[axis])) & 1).astype(np.uint8)
+        bin_patterns.append(bits[..., ::-1])  # MSB first
+
+    gray_patterns = []
+    for bp in bin_patterns:
+        gp = bp.copy()
+        for i in range(1, bp.shape[-1]):
+            gp[..., i] = np.bitwise_xor(bp[..., i - 1], bp[..., i])
+        gray_patterns.append(gp)
+
+    num = 2 * int(nbits.sum()) + 2
+    pats = np.zeros((h, w, num), np.uint8)
+    pats[:, :, 0] = 1
+    k = 2
+    for gp in gray_patterns:
+        for i in range(gp.shape[-1]):
+            pats[:, :, k] = gp[..., i]
+            pats[:, :, k + 1] = 1 - gp[..., i]
+            k += 2
+    pats *= 255
+    return np.transpose(np.tile(pats[..., None], (1, 1, 1, 3)), (2, 0, 1, 3))
+
+
+def create_number_pattern(w: int, h: int, count: int = 10) -> np.ndarray:
+    """Projector/camera sync-test "numbers" patterns -> (count, h, w, 3)
+    float: mid-gray frames with a large centred index (ref ``main.py:52-61``;
+    the dataset's own images are not redistributable)."""
+    ims = []
+    for i in range(1, count + 1):
+        im = np.full((h, w, 3), 0.5, np.float32)
+        text = str(i)
+        font_sz = h // 2
+        # roughly centred (digit glyphs are ~0.5*font_sz wide)
+        x = max((w - int(0.5 * font_sz) * len(text)) // 2, 0)
+        y = max((h - font_sz) // 2 - font_sz // 8, 0)
+        ims.append(insert_text(im, text, (x, y), font_sz,
+                               color=(255, 255, 255)))
+    return np.stack(ims, 0)
+
+
+# ------------------------------------------------------------------ text
+_ASSETS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets")
+FONT_ATLAS = os.path.join(_ASSETS, "font", "atlas.npz")
+JET_TABLE = os.path.join(_ASSETS, "jet_colormap.npy")
+
+
+@functools.lru_cache(maxsize=1)
+def _atlas():
+    """The committed glyph atlas (``tools/make_torch_font_atlas.py``):
+    meta, and per character (bitmap, left, top, advance)."""
+    with np.load(FONT_ATLAS) as a:
+        meta = json.loads(str(a["meta"]))
+        pix = a["pixels"]
+        glyphs = {}
+        for k, code in enumerate(a["chars"]):
+            s, h, w = int(a["start"][k]), int(a["height"][k]), \
+                int(a["width"][k])
+            glyphs[chr(int(code))] = (
+                pix[s:s + h * w].reshape(h, w).astype(np.int32),
+                int(a["left"][k]), int(a["top"][k]), int(a["advance"][k]))
+    return meta, glyphs
+
+
+def font_glyphs(font_sz: int) -> dict:
+    """The glyphs ``spaa_tpu`` draws at requested size ``font_sz``; raises
+    for a size the atlas does not cover (no other font stands in)."""
+    meta, glyphs = _atlas()
+    if int(font_sz) not in meta["sizes"]:
+        raise ValueError(
+            f"the font atlas ({meta['font']}) does not cover size {font_sz}; "
+            f"it covers {meta['sizes'][0]}-{meta['sizes'][-1]} "
+            "(tools/make_torch_font_atlas.py)")
+    return glyphs
+
+
+def render_text_mask(text: str, glyphs: dict):
+    """Coverage mask of ``text`` and its top-left offset from the pen
+    origin, composed as Pillow's BASIC layout does: integer advances, no
+    kerning, overlapping glyphs merged as a + round(b * (255 - a) / 255)."""
+    pen, placed = 0, []
+    for ch in text:
+        try:
+            bm, left, top, adv = glyphs[ch]
+        except KeyError:
+            raise ValueError(f"the font atlas has no glyph for {ch!r}") \
+                from None
+        if bm.size:
+            placed.append((bm, pen + left, top))
+        pen += adv
+    if not placed:
+        return np.zeros((0, 0), np.int32), (0, 0)
+    x0 = min(x for _, x, _ in placed)
+    y0 = min(y for _, _, y in placed)
+    x1 = max(x + b.shape[1] for b, x, _ in placed)
+    y1 = max(y + b.shape[0] for b, _, y in placed)
+    canvas = np.zeros((y1 - y0, x1 - x0), np.int32)
+    for bm, x, y in placed:
+        sub = canvas[y - y0:y - y0 + bm.shape[0], x - x0:x - x0 + bm.shape[1]]
+        t = bm * (255 - sub) + 128
+        sub += ((t >> 8) + t) >> 8
+    return canvas, (x0, y0)
+
+
+def _draw_text(im: np.ndarray, text: str, pos, color, glyphs) -> None:
+    """Blend ``color`` through the text's mask into uint8 HWC ``im`` in
+    place, clipped to the image: out = (in * (255 - m) + ink * m) / 255,
+    rounded as Pillow's ``draw_bitmap`` does."""
+    mask, (ox, oy) = render_text_mask(text, glyphs)
+    x, y = int(pos[0]) + ox, int(pos[1]) + oy
+    h, w = im.shape[:2]
+    ya, yb = max(y, 0), min(y + mask.shape[0], h)
+    xa, xb = max(x, 0), min(x + mask.shape[1], w)
+    if ya >= yb or xa >= xb:
+        return
+    m = mask[ya - y:yb - y, xa - x:xa - x + (xb - xa), None]
+    region = im[ya:yb, xa:xb].astype(np.int32)
+    ink = np.asarray(color, np.int32)[:im.shape[2]]
+    t = region * (255 - m) + ink * m + 128
+    im[ya:yb, xa:xb] = ((t >> 8) + t) >> 8
+
+
+def insert_text(im_hwc: np.ndarray, text: str, pos, font_sz: int = 14,
+                color=(0, 0, 0)) -> np.ndarray:
+    """Annotate an HWC float image with text (ref ``img_proc.py:174-190``)."""
+    return insert_texts(im_hwc, [(text, pos, color)], font_sz)
+
+
+def expand_border(im_hwc: np.ndarray, border=(0, 20, 0, 0),
+                  fill=(255, 255, 255)) -> np.ndarray:
+    """Pad borders (left, top, right, bottom) (ref ``img_proc.py:193-197``);
+    float in, float out."""
+    im = _pad_u8(np.uint8(np.clip(im_hwc, 0, 1) * 255), border, fill)
+    return im.astype(np.float32) / 255.0
+
+
+def _pad_u8(im: np.ndarray, border, fill) -> np.ndarray:
+    left, top, right, bottom = (int(b) for b in border)
+    h, w, c = im.shape
+    out = np.empty((h + top + bottom, w + left + right, c), np.uint8)
+    out[...] = np.asarray(fill, np.uint8)[:c]
+    out[top:top + h, left:left + w] = im
+    return out
+
+
+def insert_texts(im_hwc: np.ndarray, items, font_sz: int = 14,
+                 border=None, fill=(255, 255, 255),
+                 as_uint8: bool = False) -> np.ndarray:
+    """Optional border, then every ``(text, (x, y), color)`` drawn in the
+    font ``spaa_tpu`` draws at ``font_sz`` (the committed atlas), equal to
+    its Pillow rendering byte for byte. A uint8 image with ``as_uint8``
+    stays uint8; otherwise float [0, 1] in and out."""
+    glyphs = font_glyphs(font_sz)
+    im = im_hwc if im_hwc.dtype == np.uint8 \
+        else np.uint8(np.clip(im_hwc, 0, 1) * 255)
+    im = _pad_u8(im, border, fill) if border is not None else im.copy()
+    for text, pos, color in items:
+        _draw_text(im, text, pos, color, glyphs)
+    return im if as_uint8 else im.astype(np.float32) / 255.0
+
+
+# --------------------------------------------------------------- montage
+def resize_area_np(x: np.ndarray, size) -> np.ndarray:
+    """Host numpy twin of :func:`spaa_tpu_torch.ops.image.resize_area`
+    (the same averaging matrices, two BLAS products; ref
+    ``spaa_tpu/utils/imgproc_host.py::resize_area_np``). NHWC/HWC/HW."""
+    th, tw = int(size[0]), int(size[1])
+    x = np.asarray(x, np.float32)
+    squeeze_to = x.ndim
+    if x.ndim == 2:
+        x = x[..., None]
+    if x.ndim == 3:
+        x = x[None]
+    n, h, w, c = x.shape
+    if (h, w) != (th, tw):
+        ah = _area_matrix(h, th)                      # [th, h]
+        aw = _area_matrix(w, tw)                      # [tw, w]
+        x = np.matmul(ah, x.reshape(n, h, w * c)).reshape(n, th, w, c)
+        x = np.matmul(aw, x)                          # aw @ [w, c] per n, th
+    if squeeze_to == 3:
+        return x[0]
+    if squeeze_to == 2:
+        return x[0, ..., 0]
+    return x
+
+
+@functools.lru_cache(maxsize=1)
+def _jet() -> np.ndarray:
+    return np.load(JET_TABLE)
+
+
+def to_pseudocolor(x: np.ndarray) -> np.ndarray:
+    """Min-max normalise + JET colormap of an HxW array -> HWC float RGB
+    (ref ``img_proc.py:200-207``), from OpenCV's table
+    (``tools/make_torch_jet_table.py``)."""
+    x = np.squeeze(np.asarray(x)).astype(np.float32)
+    x = (x - x.min()) / max(x.max() - x.min(), 1e-12)
+    return _jet()[np.uint8(x * 255)].astype(np.float32) / 255.0
+
+
+def montage(im_in: np.ndarray, grid_shape=None, padding_width: int = 5,
+            fill=(1, 1, 1)) -> np.ndarray:
+    """Auto-square-grid montage of NHWC images (ref ``utils.py:301-331``:
+    rows = ceil(sqrt(N)), cols = ceil(N/rows); also takes the reference's
+    (H, W, C, N) layout)."""
+    im = np.asarray(im_in)
+    assert im.ndim == 4, "requires a 4-D array"
+    if im.shape[-1] not in (1, 3) and im.shape[-2] in (1, 3):
+        im = im.transpose(3, 0, 1, 2)      # (H, W, C, N) -> (N, H, W, C)
+    n = im.shape[0]
+    if grid_shape is None:
+        rows = int(np.ceil(np.sqrt(n)))
+        cols = int(np.ceil(n / rows))
+    else:
+        rows, cols = grid_shape
+    return _grid(im, rows, cols, padding_width,
+                 np.asarray(fill, im.dtype)[:im.shape[-1]],
+                 lambda k: divmod(k, cols))
+
+
+def _grid(imgs: np.ndarray, nr: int, ncol: int, padding: int, pad_value,
+          place) -> np.ndarray:
+    n, h, w, c = imgs.shape
+    grid = np.full((nr * (h + padding) + padding,
+                    ncol * (w + padding) + padding, c), pad_value, imgs.dtype)
+    for k in range(n):
+        r, col = place(k)
+        y0 = r * (h + padding) + padding
+        x0 = col * (w + padding) + padding
+        grid[y0:y0 + h, x0:x0 + w] = imgs[k]
+    return grid
+
+
+def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2,
+              pad_value: float = 0.0) -> np.ndarray:
+    """Tile NHWC images row by row into one HWC image (torchvision's
+    ``make_grid``, used by ``attack_results``)."""
+    imgs = np.asarray(images)
+    ncol = min(nrow, imgs.shape[0])
+    nr = int(np.ceil(imgs.shape[0] / ncol))
+    return _grid(imgs, nr, ncol, padding, pad_value,
+                 lambda k: divmod(k, ncol))
+
+
+def make_grid_transposed(images: np.ndarray, nrow: int = 8,
+                         padding: int = 2,
+                         pad_value: float = 0.0) -> np.ndarray:
+    """Column-major :func:`make_grid` (ref ``utils.py:334-416``): image k
+    at (row k % nrow, column k // nrow)."""
+    imgs = np.asarray(images)
+    nr = min(nrow, imgs.shape[0])
+    ncol = int(np.ceil(imgs.shape[0] / nr))
+    return _grid(imgs, nr, ncol, padding, pad_value,
+                 lambda k: divmod(k, nr)[::-1])

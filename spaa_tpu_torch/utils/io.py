@@ -152,3 +152,12 @@ def save_imgs(im_4d, path: str, idx: int = 0) -> None:
     for i in range(imgs.shape[0]):
         with open(join(path, f"img_{i + 1 + idx:04d}.png"), "wb") as f:
             f.write(encode_png(imgs[i]))
+
+
+def make_setup_subdirs(setup_path: str) -> None:
+    """Create the per-setup directory skeleton (ref ``utils.py:724-741``)."""
+    for sub in ["ref", "cb"]:
+        os.makedirs(join(setup_path, "prj/raw", sub), exist_ok=True)
+    for sub in ["ref", "train", "test", "cb"]:
+        os.makedirs(join(setup_path, "cam/raw", sub), exist_ok=True)
+    os.makedirs(join(setup_path, "ret"), exist_ok=True)

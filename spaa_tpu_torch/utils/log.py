@@ -9,14 +9,12 @@ reads the subset flax emits (maps, strings, binaries, arrays, scalars and
 the array extensions: ext type 1 for an ndarray, 3 for a numpy scalar,
 each itself a msgpack ``(shape, dtype name, C-order bytes)``) and
 :func:`msgpack_pack` writes param trees: maps of ndarrays. The metrics
-log is the ``.txt`` half of ``spaa_tpu``'s pandas log (same CSV columns,
-``%.4f``); its ``.xlsx`` is not written.
+log is ``spaa_tpu``'s pandas log, written from a :class:`~.table.Table`
+(the same CSV, ``%.4f``, and the same ``.xlsx``).
 """
 
 from __future__ import annotations
 
-import csv
-import io
 import os
 import struct
 import time
@@ -24,6 +22,9 @@ from os.path import abspath, join
 
 import numpy as np
 import torch
+
+from spaa_tpu_torch.utils.table import Table
+from spaa_tpu_torch.utils.xlsx import to_excel
 
 
 def opt_to_string(opt) -> str:
@@ -271,68 +272,56 @@ LOG_COLUMNS = ["Setup", "Model", "Loss", "Num train", "Batch", "Iters",
                "PSNR", "RMSE", "SSIM", "L2", "L-inf", "dE"]
 
 
-class LogTable:
-    """Rows of the training metrics table (the reference's pandas frame,
-    ``utils.py:678-694``): a numeric column prints as integers until a
-    float enters it (a metric, or a mean row), then every value ``%.4f``,
-    and an empty cell stays empty, as ``DataFrame.to_csv`` writes them."""
-
-    def __init__(self):
-        self.rows: list = []
-
-    def append(self, row) -> None:
-        if len(row) != len(LOG_COLUMNS):
-            raise ValueError(f"a log row has {len(LOG_COLUMNS)} values")
-        self.rows.append(list(row))
-
-    def add_mean_row(self, model_name: str, n_setups: int) -> None:
-        """Per-model mean of the numeric columns (ref
-        ``train_network.py:584-586``)."""
-        sel = [r for r in self.rows if r[1] == model_name]
-        mean = [None] * len(LOG_COLUMNS)
-        for c in range(3, len(LOG_COLUMNS)):
-            vals = [float(r[c]) for r in sel if r[c] is not None]
-            mean[c] = sum(vals) / len(vals) if vals else None
-        mean[0], mean[1] = f"[mean]_{n_setups}_setups", model_name
-        self.rows.append(mean)
-
-    def _cells(self) -> list:
-        floats = [any(isinstance(r[c], float) for r in self.rows)
-                  for c in range(len(LOG_COLUMNS))]
-
-        def cell(v, c):
-            if v is None:
-                return ""
-            if isinstance(v, (int, float)) and not isinstance(v, bool):
-                return f"{v:.4f}" if floats[c] else str(v)
-            return str(v)
-
-        return [[cell(v, c) for c, v in enumerate(r)] for r in self.rows]
-
-    def to_csv(self) -> str:
-        buf = io.StringIO()
-        w = csv.writer(buf, lineterminator="\n")
-        w.writerow(LOG_COLUMNS)
-        w.writerows(self._cells())
-        return buf.getvalue()
-
-    def to_string(self) -> str:
-        rows = [LOG_COLUMNS] + self._cells()
-        widths = [max(len(r[c]) for r in rows) for c in range(len(LOG_COLUMNS))]
-        return "\n".join("  ".join(v.rjust(wd) for v, wd in zip(r, widths))
-                         for r in rows)
-
-
 def init_log_file(log_dir: str):
-    """A fresh :class:`LogTable` and its timestamped ``.txt`` path (ref
-    ``utils.py:678-684``)."""
+    """A fresh metrics :class:`~.table.Table` and its timestamped ``.txt``
+    and ``.xlsx`` paths (ref ``utils.py:678-684``)."""
     os.makedirs(log_dir, exist_ok=True)
     stamp = time.strftime("%Y-%m-%d_%H_%M_%S", time.localtime())
-    return LogTable(), join(log_dir, stamp + ".txt")
+    return (Table(LOG_COLUMNS), join(log_dir, stamp + ".txt"),
+            join(log_dir, stamp + ".xlsx"))
 
 
-def write_log_file(table: LogTable, log_txt: str) -> None:
-    """Ref ``utils.py:687-694``: the table as CSV, floats ``%.4f``."""
-    with open(log_txt, "w") as f:
-        f.write(table.to_csv())
-    print(f"Log file is saved to {log_txt}")
+def add_mean_row(table: Table, model_name: str, n_setups: int) -> None:
+    """Per-model mean of the numeric columns (ref
+    ``train_network.py:584-586``), as pandas' ``mean(numeric_only=True)``
+    sums them."""
+    sel = [r for r in table.typed_rows() if r[1] == model_name]
+    mean = [None] * len(table.columns)
+    for c in range(3, len(table.columns)):
+        vals = [r[c] for r in sel if r[c] is not None]
+        mean[c] = (float(np.sum(np.asarray(vals, np.float64)) / len(vals))
+                   if vals else None)
+    mean[0], mean[1] = f"[mean]_{n_setups}_setups", model_name
+    table.append(mean)
+
+
+def write_log_file(table: Table, log_txt=None, log_xls=None) -> None:
+    """Ref ``utils.py:687-694``: the table as CSV (floats ``%.4f``) and as
+    ``.xlsx``."""
+    if log_txt is not None:
+        table.to_csv(log_txt, float_format="%.4f")
+    if log_xls is not None:
+        to_excel(table, log_xls, index=False)
+    print(f"Log files are saved to {log_txt} and {log_xls}")
+
+
+def print_sys_info() -> None:
+    """Ref ``utils.py:629-653``: the OS, torch, CUDA and the card."""
+    import platform
+    print("-" * 38 + " System info " + "-" * 39)
+    print("OS:", platform.platform())
+    print("torch version=" + torch.__version__
+          + f", CUDA={torch.version.cuda}")
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            print(f"cuda:{i}: {torch.cuda.get_device_name(i)}")
+    else:
+        print("devices: no CUDA device")
+    print("-" * 38 + " System info " + "-" * 39)
+
+
+def print_peak_memory(dev) -> None:
+    """The process's peak device memory, for the caller's log."""
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
+            if dev.type == "cuda" else f"not measured on {dev.type}")
+    print(f"[peak device memory] {peak}", flush=True)

@@ -48,7 +48,9 @@ def test_port_imports_nothing_forbidden():
     expected = [m.name for m in pkgutil.walk_packages(
         spaa_tpu_torch.__path__, "spaa_tpu_torch.")]
     assert sorted(res["modules"]) == sorted(expected)
-    assert "spaa_tpu_torch.ops.warp" in res["modules"]
+    for name in ("ops.warp", "utils.table", "utils.xlsx", "utils.procams",
+                 "attack.summarize", "main", "reproduce_paper_results"):
+        assert "spaa_tpu_torch." + name in res["modules"], name
     assert not set(res["loaded"]) & set(FORBIDDEN), res["loaded"]
 
 

@@ -37,6 +37,7 @@ values).
 import importlib
 import os
 import random
+import zipfile
 from os.path import join
 
 import numpy as np
@@ -493,18 +494,22 @@ def test_log_table_matches_pandas_writer(tmp_path):
              3.0, 5.5, 2.25],
             ["s2", "PCNet", "l1+ssim", 16, 16, 3, 21.0, 0.2, 0.8, 3.5, 5.0,
              2.5]]
-    ret, jtxt, _ = JL.init_log_file(str(tmp_path / "jax"))
-    table, ttxt = TL.init_log_file(str(tmp_path / "port"))
+    ret, jtxt, jxls = JL.init_log_file(str(tmp_path / "jax"))
+    table, ttxt, txls = TL.init_log_file(str(tmp_path / "port"))
     for r in rows:
         ret.loc[len(ret)] = r
         table.append(r)
     JL.write_log_file(ret, jtxt, None)
-    TL.write_log_file(table, ttxt)
+    TL.write_log_file(table, ttxt, None)
     assert open(ttxt).read() == open(jtxt).read()
     sel = ret.loc[ret["Model"] == "PCNet"]
     ret.loc[len(ret)] = sel.mean(axis=0, numeric_only=True)
     ret.loc[len(ret) - 1, ["Setup", "Model"]] = ["[mean]_2_setups", "PCNet"]
-    table.add_mean_row("PCNet", 2)
-    JL.write_log_file(ret, jtxt, None)
-    TL.write_log_file(table, ttxt)
+    TL.add_mean_row(table, "PCNet", 2)
+    JL.write_log_file(ret, jtxt, jxls)
+    TL.write_log_file(table, ttxt, txls)
     assert open(ttxt).read() == open(jtxt).read()
+    # the .xlsx half, part for part
+    with zipfile.ZipFile(jxls) as zj, zipfile.ZipFile(txls) as zt:
+        for name in zj.namelist():
+            assert zt.read(name) == zj.read(name), name
