@@ -38,24 +38,41 @@ Phases, each printed on its own lines:
    deterministic kernels: with the default ones, rounding that differs
    from run to run sends some runs into a mode that stays near 22 dB, so
    only a run that repeats bit for bit can be held to the floor;
-7. main path on the trained setup, ResNet-18 (224x224), VGG-16 (224x224)
+7. compennet: ``train_eval_compennet_pp`` on that setup at full width,
+   on deterministic kernels like ``[train]``: CompenNet's one-time
+   pre-training at its default 500 iterations (batch 48), then CompenNet++
+   at ``max_iters`` 200 (batch 24, ``valid_rate`` 100): the pre-training's
+   seconds, the final validation PSNR/RMSE/SSIM against the untrained
+   CompenNet++'s and a floor, peak memory; the port's loader reads the
+   checkpoint back; then each model's iteration re-timed on the default
+   kernels (ms, steady state);
+8. percal: ``run_projector_based_attack`` for PerC-AL+CompenNet++ with
+   ``load_pretrained`` on that CompenNet++, ResNet-18, VGG-16 and
+   Inception-v3, the fused 10 targeted + 1 untargeted batch x 50
+   iterations each: seconds, ms/iteration (5 iterations re-timed), peak
+   memory, 22 PNGs, finite outputs in [0, 1], no warp launch;
+9. main path on the trained setup, ResNet-18 (224x224), VGG-16 (224x224)
    and Inception-v3 (299x299): ``run_projector_based_attack`` with
    ``load_pretrained`` on the trained checkpoint, the full 132-image x
    50-iteration sweep per classifier: s/config, ms/iteration, peak memory,
    264 PNGs, finite outputs in [0, 1], 50 + 50 warp launches each;
-8. pipeline: as subprocesses, ``python -m spaa_tpu_torch.main --steps 6,7``
-   (the replay of the 396 adversarial projections through the port's
-   ``SimProCams``, then the SPAA summarize: 36 rows of 71 columns, 396
-   montages) and ``python -m spaa_tpu_torch.reproduce_paper_results --sim
-   --summarize-only --keep-existing-imgs`` (``stats_all`` and the pivot
-   table); their replay and summarize seconds, summarize phases and peak
-   device memory; checks of row, column and montage counts, finite
-   metrics and success rates in [0, 1]; then the ResNet-18 rows
-   summarized again in this process on the card and on the CPU from the
-   same PNGs: validation and stealth metrics within 1e-4 (the validation
-   images of the 200-iteration PCNet are linked under the 2000-iteration
-   key summarize reads), success rates printed side by
-   side (near-ties may flip a top-k between cuDNN and the CPU).
+10. pipeline: as subprocesses, ``python -m spaa_tpu_torch.main --steps
+   6,7,8 --load-pretrained --train-iters 200`` (the replay of the 396
+   SPAA projections through the port's ``SimProCams``, the SPAA
+   summarize: 36 rows of 71 columns, 396 montages; then step 8: the
+   CompenNet++ checkpoint loaded, the PerC-AL attack, the replay of its 33
+   projections and its summarize, 3 rows) and ``python -m
+   spaa_tpu_torch.reproduce_paper_results --sim --attackers SPAA
+   PerC-AL+CompenNet++ --summarize-only --keep-existing-imgs``
+   (``stats_all`` and the pivot table, 39 rows); their replay and
+   summarize seconds, summarize phases and peak device memory; checks of
+   row, column and montage counts, finite metrics and success rates in
+   [0, 1]; then the SPAA ResNet-18 rows summarized again in this process on
+   the card and on the CPU from the same PNGs: validation and stealth
+   metrics within 1e-4 (the validation images of the 200-iteration PCNet
+   and CompenNet++ are linked under the 2000-iteration keys summarize
+   reads), success rates printed side by side (near-ties may flip a top-k
+   between cuDNN and the CPU).
 
 Before the last line it prints the kernels as one JSON object and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -90,6 +107,12 @@ VALID_RATE = 100
 # 21.89-24.86 dB there, runs that train 30.83-36.82 dB, the deterministic
 # run of the default seed 34.32 dB (PERF.md section 6)
 TRAIN_PSNR_FLOOR = 30.0
+COMPEN_ITERS = 200            # CompenNet++ training budget of the smoke
+# CompenNet++'s valid PSNR after COMPEN_ITERS deterministic iterations:
+# 21.94 dB measured (untrained 10.23); predicting the mean projector image,
+# where a warp that never registers converges, reads 12.10 dB (PERF.md
+# section 6, PR 5)
+COMPEN_PSNR_FLOOR = 18.0
 STEADY_WARMUP, STEADY_STEPS = 3, 10   # re-timed training iterations
 
 
@@ -457,10 +480,10 @@ def check_against_cpu(data_root, small, on_card):
         raise AssertionError(f"card and CPU PCNet forwards disagree: {err}")
 
 
-def count_pngs(root, classifier=None):
+def count_pngs(root, classifier=None, attacker_cfg=""):
     n = 0
     for sub in ("prj/adv", "cam/infer/adv"):
-        for d, _, files in os.walk(join(root, sub)):
+        for d, _, files in os.walk(join(root, sub, attacker_cfg)):
             if classifier is None or os.path.basename(d) == classifier:
                 n += len(files)
     return n
@@ -571,25 +594,9 @@ def phase_train(data_root, dev):
     loss_fn = P.make_pcnet_loss(model, scene, mask)
     x_all = torch.from_numpy(as_uint8_wire(data["prj_train"])).to(dev)
     y_all = torch.from_numpy(as_uint8_wire(data["cam_train"])).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ms = {}
-    for phase, itr in (("l1", 0), ("l1+ssim", 401)):
-        times = []
-        for k in range(STEADY_WARMUP + STEADY_STEPS):
-            idx = torch.randint(0, x_all.shape[0], (cfg.batch_size,),
-                                generator=gen, device=dev)
-            torch.cuda.synchronize()
-            t1 = time.time()
-            loss, _ = loss_fn(x_all[idx].float() / 255.0,
-                              y_all[idx].float() / 255.0, itr)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-            sched.step()
-            torch.cuda.synchronize()
-            if k >= STEADY_WARMUP:
-                times.append(1e3 * (time.time() - t1))
-        ms[phase] = statistics.median(times)
+    ms = {phase: steady_train_ms(loss_fn, opt, sched, x_all, y_all,
+                                 cfg.batch_size, dev, itr)
+          for phase, itr in (("l1", 0), ("l1+ssim", 401))}
     log(f"[train] steady state at batch {cfg.batch_size}: "
         f"{ms['l1']:.2f} ms/iteration (l1, iterations <= 400), "
         f"{ms['l1+ssim']:.2f} ms/iteration (l1+ssim), median of "
@@ -637,7 +644,8 @@ def phase_attack(data_root, dev, classifier):
     cam_best, prj_best = seen["out"]
     launches, wall = seen["launches"], seen["wall"]
     setup_path = join(data_root, "setups", "sim_setup")
-    n_png = count_pngs(setup_path, classifier)
+    n_png = count_pngs(setup_path, classifier,
+                       O.to_attacker_cfg_str("SPAA")[0])
     ok_out = all(bool(torch.isfinite(t).all()) and float(t.min()) >= 0.0
                  and float(t.max()) <= 1.0 for t in (cam_best, prj_best))
     clf = seen["clf"]
@@ -668,6 +676,234 @@ def phase_attack(data_root, dev, classifier):
                                  f"{classifier} sweep, expected {ITERS}")
     return dict(wall_s=wall, s_per_config=wall / n_cfg, ms_per_iter=ms_iter,
                 peak_bytes=seen["peak"], launches=launches)
+
+
+def steady_train_ms(loss_fn, opt, sched, x_all, y_all, batch, dev, itr=0):
+    """Median ms of STEADY_STEPS synchronised training steps (``loss_fn``
+    at iteration ``itr``) on random minibatches, after STEADY_WARMUP (host
+    clock, default kernels)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = []
+    for k in range(STEADY_WARMUP + STEADY_STEPS):
+        idx = torch.randint(0, x_all.shape[0], (batch,), generator=gen,
+                            device=dev)
+        x, y = (a[idx].float() / 255.0 if a.dtype == torch.uint8 else a[idx]
+                for a in (x_all, y_all))
+        torch.cuda.synchronize()
+        t1 = time.time()
+        loss, _ = loss_fn(x, y, itr)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        sched.step()
+        torch.cuda.synchronize()
+        if k >= STEADY_WARMUP:
+            times.append(1e3 * (time.time() - t1))
+    return statistics.median(times)
+
+
+def phase_compennet(data_root, dev):
+    """train_eval_compennet_pp at full width on deterministic kernels:
+    CompenNet's pre-training at its default 500 iterations (batch 48),
+    CompenNet++ at COMPEN_ITERS (batch 24); the checkpoint read back; the
+    validation PSNR against the untrained CompenNet++'s; then each model's
+    steady-state iteration re-timed on the default kernels."""
+    import numpy as np
+    import torch
+    from spaa_tpu_torch.models.compen_net import CompenNetPlusplus
+    from spaa_tpu_torch.train import pipeline as P
+    from spaa_tpu_torch.train.data import as_uint8_wire, load_data
+    from spaa_tpu_torch.train.train import (get_model_train_cfg,
+                                            make_compennet_pp_optimizer,
+                                            make_evaluator)
+    from spaa_tpu_torch.utils.io import imread_dir
+    from spaa_tpu_torch.utils.seed import reset_rng_seeds
+
+    mc = get_model_train_cfg(["CompenNet++"], data_root, ["sim_setup"])
+    mc.max_iters = COMPEN_ITERS
+    mc.valid_rate = VALID_RATE
+    seen = {}
+    orig = P.init_compennet
+
+    def timed_init(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = orig(*args, **kw)
+        torch.cuda.synchronize()
+        seen["init_s"] = time.time() - t0
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    P.init_compennet = timed_init
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        trained, table, cfg = P.train_eval_compennet_pp(mc, dev)
+    finally:
+        P.init_compennet = orig
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    curve = [json.loads(line) for line in open(join(
+        data_root, "..", "log", "curves_CompenNet++_sim_setup.jsonl"))]
+    psnr, rmse, ssim = table.rows[0][6:9]
+    losses = [c["train_loss"] for c in curve]
+
+    # the untrained CompenNet++: the pipeline's draw, inverse affine and
+    # pre-trained CompenNet (now cached), before any CompenNet++ step
+    data = load_data(data_root, "sim_setup")
+    scene = torch.from_numpy(data["cam_scene"]).to(dev)
+    prj_hw = data["prj_train"].shape[1:3]
+    compen = P.init_compennet(data_root, mc, dev)
+    untrained = P._set_affine(CompenNetPlusplus(prj_hw).init_weights(
+        reset_rng_seeds(0)), data["mask_corners"], inverse=True)
+    untrained.compen_net.load_state_dict(compen.state_dict())
+    untrained = untrained.to(dev)
+    psnr0 = make_evaluator(lambda x: untrained(x, scene),
+                           as_uint8_wire(data["cam_valid"]),
+                           as_uint8_wire(data["prj_valid"]), dev)()[0]
+    log(f"[compennet] CompenNet pre-training: 500 iterations at batch 48 on "
+        f"{NUM_TRAIN} pairs in {seen['init_s']:.3f} s (image reads "
+        f"included), deterministic kernels")
+    log(f"[compennet] train_eval_compennet_pp: {COMPEN_ITERS} iterations at "
+        f"batch {cfg.batch_size}, {cfg.num_train} pairs, deterministic "
+        f"kernels, in {wall - seen['init_s']:.3f} s wall after the "
+        f"pre-training (data load, 2 validations, final validation of "
+        f"{NUM_VALID} and PNG writes included); loss {losses[0]:.5f} at "
+        f"iteration {curve[0]['step']}, {losses[-1]:.5f} at "
+        f"{curve[-1]['step']}; valid PSNR {psnr:.4f} RMSE {rmse:.4f} SSIM "
+        f"{ssim:.4f} (untrained PSNR {psnr0:.4f}); peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    if not all(math.isfinite(v) for v in losses + [psnr, rmse, ssim]):
+        raise AssertionError(f"non-finite CompenNet++ losses or metrics: "
+                             f"{losses}, {psnr}, {rmse}, {ssim}")
+    if not psnr > psnr0:
+        raise AssertionError(f"training did not raise CompenNet++'s "
+                             f"validation PSNR ({psnr0} -> {psnr})")
+    if not psnr >= COMPEN_PSNR_FLOOR:
+        raise AssertionError(f"CompenNet++ valid PSNR {psnr} dB after "
+                             f"{COMPEN_ITERS} iterations is under "
+                             f"{COMPEN_PSNR_FLOOR} dB")
+
+    back = P._load_weights(CompenNetPlusplus(prj_hw), P._ckpt_path(cfg))
+    for k, v in trained.model.state_dict().items():
+        if not torch.equal(back.state_dict()[k].to(dev), v):
+            raise AssertionError(f"CompenNet++ checkpoint read back differs "
+                                 f"at {k}")
+
+    # steady state on the default kernels: the pre-training's step (batch
+    # 48, float pairs) and CompenNet++'s (batch 24, uint8 pairs)
+    init_scene = imread_dir(join(data_root, "prj_share/init"))[:1]
+    prj = torch.from_numpy(data["prj_train"]).to(dev)
+    cam_init = torch.from_numpy(np.abs(data["prj_train"]
+                                       - 0.3 * init_scene)).to(dev)
+    ms = {}
+    for name, model, loss_fn, x_all, y_all, batch in (
+            ("CompenNet", compen.train(), P.make_compennet_loss(
+                compen, torch.from_numpy(init_scene).to(dev), "l1+ssim"),
+             cam_init, prj, 48),
+            ("CompenNet++", untrained.train(), P.make_compennet_loss(
+                untrained, scene, "l1+ssim"),
+             torch.from_numpy(as_uint8_wire(data["cam_train"])).to(dev),
+             torch.from_numpy(as_uint8_wire(data["prj_train"])).to(dev),
+             24)):
+        opt, sched = make_compennet_pp_optimizer(model, mc)
+        ms[name] = steady_train_ms(loss_fn, opt, sched, x_all, y_all, batch,
+                                   dev)
+    log(f"[compennet] steady state: CompenNet pre-training "
+        f"{ms['CompenNet']:.2f} ms/iteration at batch 48, CompenNet++ "
+        f"{ms['CompenNet++']:.2f} ms/iteration at batch 24 (l1+ssim), "
+        f"median of {STEADY_STEPS}")
+    return dict(init_s=seen["init_s"], wall_s=wall, psnr=psnr, psnr0=psnr0,
+                ms_init=ms["CompenNet"], ms_pp=ms["CompenNet++"],
+                peak_bytes=peak)
+
+
+def phase_percal(data_root, dev):
+    """run_projector_based_attack for PerC-AL+CompenNet++ with
+    load_pretrained on the CompenNet++ just trained: the three
+    classifiers, ITERS iterations each; each sweep timed through a
+    wrapper of ``_run_percal_sweep``; no warp launch."""
+    import torch
+    from spaa_tpu_torch.attack import orchestrate as O
+    from spaa_tpu_torch.attack.perc_al import PerC_AL
+    from spaa_tpu_torch.ops import warp as W
+
+    cfg = O.get_attacker_cfg("PerC-AL+CompenNet++", data_root, ["sim_setup"],
+                             load_pretrained=True)
+    cfg.attack_iters = ITERS
+    cfg.max_iters = COMPEN_ITERS
+    pcfg = O.to_attacker_cfg_str("PerC-AL+CompenNet++")[0]
+    setup_path = join(data_root, "setups", "sim_setup")
+    seen = {}
+    orig = O._run_percal_sweep
+
+    def timed_sweep(cfg_, trained, clf, cam_scene, target_idx, true_idx,
+                    *args):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        W.reset_launch_counts()
+        t0 = time.time()
+        out = orig(cfg_, trained, clf, cam_scene, target_idx, true_idx, *args)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(W.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        # steady state: the same batch re-attacked for 5 iterations
+        cp_sz = tuple(int(v) for v in trained.setup_info[
+            "classifier_crop_sz"])
+        inputs = cam_scene.expand(len(target_idx) + 1, -1, -1, -1)
+        targeted = [True] * len(target_idx) + [False]
+        logits_fn = O.make_attack_logits_fn(clf, cp_sz)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        PerC_AL(max_iterations=5, confidence=40).adversary_projector(
+            logits_fn, inputs, list(target_idx) + [true_idx], d_thr=11,
+            targeted=targeted, verbose=False)
+        torch.cuda.synchronize()
+        seen[clf.name] = dict(wall_s=wall, launches=launches, peak=peak,
+                              before=before, out=out,
+                              ms_iter=1e3 * (time.time() - t1) / 5)
+        return out
+
+    O._run_percal_sweep = timed_sweep
+    try:
+        O.run_projector_based_attack(cfg, weights_dir=join(REPO,
+                                                           "checkpoint"),
+                                     device=dev)
+    finally:
+        O._run_percal_sweep = orig
+    for name in ("inception_v3", "resnet18", "vgg16"):
+        s = seen[name]
+        cam, prj = s["out"]
+        n_png = count_pngs(setup_path, name, pcfg)
+        ok_out = all(bool(torch.isfinite(t).all()) and float(t.min()) >= 0.0
+                     and float(t.max()) <= 1.0 for t in (cam, prj))
+        log(f"[percal] {name}: sweep {s['wall_s']:.3f} s wall for "
+            f"{cam.shape[0]} images x {ITERS} iterations (CompenNet++ "
+            f"and PNG writes included); steady state {s['ms_iter']:.2f} "
+            f"ms/iteration; peak memory {s['peak'] / 2**30:.3f} GiB "
+            f"({s['before'] / 2**30:.3f} GiB allocated before the sweep); "
+            f"{n_png} PNGs; outputs finite and in [0,1]: {ok_out}; launches "
+            f"{s['launches']}")
+        if cam.shape[0] != 11 or prj.shape[0] != 11:
+            raise AssertionError(f"unexpected PerC-AL batch {cam.shape[0]}")
+        if not ok_out:
+            raise AssertionError(f"{name} PerC-AL outputs are not finite in "
+                                 "[0, 1]")
+        if n_png != 22:
+            raise AssertionError(f"expected 22 PerC-AL PNGs for {name}, "
+                                 f"found {n_png}")
+        if any(s["launches"].values()):
+            raise AssertionError(f"the PerC-AL sweep launched the warp "
+                                 f"kernel: {s['launches']}")
+    return seen
 
 
 def run_child(args, what, timeout=900):
@@ -744,19 +980,26 @@ def phase_pipeline(sim_root, dev):
     from spaa_tpu_torch.utils.xlsx import read_xlsx
 
     setups = join(sim_root, "setups")
-    # summarize validates the PCNet of the default 2000-iteration key;
-    # [train] cut it to TRAIN_ITERS, so its validation images are linked
-    # under the key summarize reads
-    test_dir = join(setups, "sim_setup", "cam", "infer", "test")
-    trained = f"PCNet_l1+ssim_{NUM_TRAIN}_24_{TRAIN_ITERS}"
-    read_key = O.to_attacker_cfg_str("SPAA")[1]
-    os.symlink(trained, join(test_dir, read_key))
-    log(f"[pipeline] validation images of {trained} linked as {read_key}")
+    # summarize validates each model of the default 2000-iteration key;
+    # [train] and [compennet] cut them to TRAIN_ITERS and COMPEN_ITERS, so
+    # their validation images are linked under the keys summarize reads
+    for attacker, sub, model in (
+            ("SPAA", "cam", f"PCNet_l1+ssim_{NUM_TRAIN}_24_{TRAIN_ITERS}"),
+            ("PerC-AL+CompenNet++", "prj",
+             f"CompenNet++_l1+ssim_{NUM_TRAIN}_24_{COMPEN_ITERS}")):
+        read_key = O.to_attacker_cfg_str(attacker)[1]
+        os.symlink(model, join(setups, "sim_setup", sub, "infer", "test",
+                               read_key))
+        log(f"[pipeline] validation images of {model} linked as {read_key}")
     lines = run_child(["spaa_tpu_torch.main", "--data-root", sim_root,
-                       "--setup-name", "sim_setup", "--steps", "6,7"],
-                      "main --steps 6,7")
+                       "--setup-name", "sim_setup", "--steps", "6,7,8",
+                       "--load-pretrained", "--train-iters",
+                       str(COMPEN_ITERS)],
+                      "main --steps 6,7,8 --load-pretrained")
     step_s = {int(m.group(1)): float(m.group(2))
               for m in _grep(lines, r"^\[step (\d+)\] ([0-9.]+) s")}
+    step8 = _grep(lines, r"^\[step 8\] train\+attack ([0-9.]+) s, replay "
+                         r"([0-9.]+) s, summarize ([0-9.]+) s")[0]
     phases = [m.group(1) for m in _grep(lines, r"^\[summarize\] (valid=.*)")]
     drain = [m.group(1) for m in _grep(lines,
                                        r"^\[summarize\] montage drain: (.*)")]
@@ -765,35 +1008,51 @@ def phase_pipeline(sim_root, dev):
         f"{step_s[6]:.3f} s; SPAA summarize of 1 setup: {step_s[7]:.3f} s "
         f"({phases[0]}; montage drain {drain[0]}); peak device memory "
         f"{peak[0]}")
+    log(f"[pipeline] step 8 (PerC-AL+CompenNet++, CompenNet++ loaded): "
+        f"{step_s[8]:.3f} s; load + attack of 3 classifiers "
+        f"{step8.group(1)} s, replay of the 33 adversarial projections "
+        f"{step8.group(2)} s, PerC-AL summarize {step8.group(3)} s "
+        f"({phases[1]}; montage drain {drain[1]})")
     phase_json = join(dirname(sim_root), "phases.json")
     lines = run_child(["spaa_tpu_torch.reproduce_paper_results", "--sim",
                        "--data-root", dirname(sim_root), "--attackers",
-                       "SPAA", "--summarize-only", "--keep-existing-imgs",
-                       "--phase-json", phase_json],
+                       "SPAA", "PerC-AL+CompenNet++", "--summarize-only",
+                       "--keep-existing-imgs", "--phase-json", phase_json],
                       "reproduce_paper_results --summarize-only")
     rec = json.load(open(phase_json))
     phases = [m.group(1) for m in _grep(lines, r"^\[summarize\] (valid=.*)")]
     peak = [m.group(1) for m in _grep(lines, r"^\[peak device memory\] (.*)")]
     log(f"[pipeline] reproduce_paper_results --summarize-only: phases "
         f"{rec['phases']}, {rec['stats_all_rows']} rows; summarize "
-        f"({phases[0]}); peak device memory {peak[0]}")
+        f"({'; '.join(phases)}); peak device memory {peak[0]}")
 
+    n_rows = 36 + 3             # SPAA's grid, then PerC-AL's one config x 3
     stats_all = read_csv(join(setups, "stats_all.txt"), sep="\t")
-    check_stats(stats_all, 36)
+    check_stats(stats_all, n_rows)
     n_montages = sum(len([f for f in files if f.endswith(".png")])
                      for _, _, files in os.walk(join(setups, "sim_setup",
                                                      "ret")))
     pivot = read_xlsx(join(setups, "pivot_table_all.xlsx"))
-    valid = {c: stats_all[c][0] for c in COLUMNS[11:17]}
+    attackers = [O.to_attacker_cfg_str(a)[0]
+                 for a in ("SPAA", "PerC-AL+CompenNet++")]
+    rows = {a: [r for r in stats_all.typed_rows() if r[1] == a]
+            for a in attackers}
+    valid = {a: {c: rows[a][0][COLUMNS.index(c)] for c in COLUMNS[11:17]}
+             for a in attackers}
     log(f"[pipeline] stats_all.txt {len(stats_all)} rows x "
-        f"{len(stats_all.columns)} columns; {n_montages} montages; "
+        f"{len(stats_all.columns)} columns ({len(rows[attackers[0]])} SPAA, "
+        f"{len(rows[attackers[1]])} PerC-AL); {n_montages} montages; "
         f"pivot_table_all.xlsx {len(pivot) - 1} rows x {len(pivot[0])} "
-        f"columns; validation bundle {valid}")
-    if not all(v > 0.0 for v in valid.values()):
-        raise AssertionError(f"the validation bundle did not run: {valid}")
-    if n_montages != 396 or len(pivot) - 1 != 36:
-        raise AssertionError(f"{n_montages} montages (396 expected), "
-                             f"{len(pivot) - 1} pivot rows (36 expected)")
+        f"columns; validation bundles {valid}")
+    if [len(rows[a]) for a in attackers] != [36, 3]:
+        raise AssertionError(f"stats_all rows by attacker: "
+                             f"{[len(rows[a]) for a in attackers]}")
+    if not all(v > 0.0 for d in valid.values() for v in d.values()):
+        raise AssertionError(f"a validation bundle did not run: {valid}")
+    if n_montages != 11 * n_rows or len(pivot) - 1 != n_rows:
+        raise AssertionError(f"{n_montages} montages ({11 * n_rows} "
+                             f"expected), {len(pivot) - 1} pivot rows "
+                             f"({n_rows} expected)")
 
     again = resummarize_resnet18(sim_root, dev, dirname(sim_root))
     card, cpu = again["card"], again["cpu"]
@@ -856,6 +1115,8 @@ def main():
         check_against_cpu(data_root, res["prj_small"], res["on_card"])
         sim_root, _ = phase_sim(tmp)
         phase_train(sim_root, dev)
+        phase_compennet(sim_root, dev)
+        phase_percal(sim_root, dev)
         sweeps = [res] + [phase_attack(sim_root, dev, name)
                           for name in ("resnet18", "vgg16", "inception_v3")]
         phase_pipeline(sim_root, dev)

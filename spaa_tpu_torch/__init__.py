@@ -1,15 +1,17 @@
 """spaa_tpu_torch: the SPAA attack system in PyTorch, for one NVIDIA H100.
 
 A port of ``spaa_tpu`` (JAX/Flax/Pallas on a TPU), which stays in the
-repository as the reference. This package holds the SPAA attacker from
-captures to the paper's table: the analytic ProCams simulator that writes
-a setup, PCNet training and validation, the frozen PCNet with its baked
-warp grid, the ResNet-18 / VGG-16 / Inception-v3 classify pipelines, the
-CIEDE2000 colour losses, the fused SPAA sweep, the replay of its
+repository as the reference. This package holds the SPAA and
+PerC-AL+CompenNet++ attackers from captures to the paper's table: the
+analytic ProCams simulator that writes a setup, PCNet and CompenNet++
+training and validation, the frozen PCNet with its baked warp grid, the
+ResNet-18 / VGG-16 / Inception-v3 classify pipelines, the CIEDE2000 colour
+losses, the fused SPAA sweep and the PerC-AL loop, the replay of their
 projections and the summarize into stats tables, montages and the pivot
 (``main`` and ``reproduce_paper_results`` are the entry scripts). The one
-TPU kernel on that path, the fixed-grid bilinear warp, is a CUDA C++
-kernel written for ``sm_90a`` (``csrc/fixed_warp.cu``).
+TPU kernel on SPAA's path, the fixed-grid bilinear warp, is a CUDA C++
+kernel written for ``sm_90a`` (``csrc/fixed_warp.cu``); PerC-AL's path has
+none.
 
 Ground rules:
 

@@ -1,14 +1,14 @@
-"""Attack orchestration, SPAA path (counterpart of
+"""Attack orchestration, SPAA and PerC-AL+CompenNet++ (counterpart of
 ``spaa_tpu/attack/orchestrate.py``, reference
-``projector_based_attack.py:24-209``).
+``projector_based_attack.py:24-209,342-359``).
 
 Same attacker names, sweep grid and output layout
 (``prj/adv/<attacker_cfg>/<loss>/<d_thr>/<classifier>`` and
-``cam/infer/adv/...``). Per classifier, the (stealth loss x d_thr) grid
-runs as one batched attack of 12 x 11 = 132 images;
+``cam/infer/adv/...``). Per classifier, SPAA's (stealth loss x d_thr) grid
+runs as one batched attack of 12 x 11 = 132 images, and PerC-AL's one
+(loss, d_thr) config as one batch of 10 targeted + 1 untargeted samples;
 :func:`project_capture_real_attack` replays the results through ProCams.
-PerC-AL+CompenNet++ and One-pixel DE are not ported yet (ROADMAP.md queue
-A items 5 and 6).
+One-pixel DE is not ported yet (ROADMAP.md queue A item 6).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spaa_tpu_torch.attack.perc_al import PerC_AL
 from spaa_tpu_torch.attack.spaa import (SpaaConfig, spaa_attack_batched,
                                         stealth_weights)
 from spaa_tpu_torch.models.classifiers import (Classifier,
@@ -32,7 +33,8 @@ from spaa_tpu_torch.ops.image import center_crop
 from spaa_tpu_torch.ops.warp import (FixedWarp, build_fixed_warp,
                                      fixed_warp_apply)
 from spaa_tpu_torch.train.data import load_setup_info
-from spaa_tpu_torch.train.pipeline import train_eval_pcnet
+from spaa_tpu_torch.train.pipeline import (train_eval_compennet_pp,
+                                           train_eval_pcnet)
 from spaa_tpu_torch.train.train import get_model_train_cfg
 from spaa_tpu_torch.utils.config import DictConfig
 from spaa_tpu_torch.utils.device import resolve_device
@@ -40,8 +42,7 @@ from spaa_tpu_torch.utils.io import imread, save_imgs
 from spaa_tpu_torch.utils.seed import reset_rng_seeds
 
 ATTACKER_NAMES = ["SPAA", "PerC-AL+CompenNet++", "One-pixel_DE"]
-_NOT_PORTED = {"PerC-AL+CompenNet++": "item 5 (PerC-AL)",
-               "One-pixel_DE": "item 6 (One-pixel DE)"}
+_NOT_PORTED = {"One-pixel_DE": "item 6 (One-pixel DE)"}
 
 
 def get_attacker_cfg(attacker_name: str, data_root: str, setup_list,
@@ -87,6 +88,38 @@ def to_attacker_cfg_str(attacker_name: str):
         return (f"{attacker_name}_{mc.loss}_{mc.num_train}_{mc.batch_size}_"
                 f"{mc.max_iters}", model_cfg_str)
     return attacker_name, None
+
+
+def perc_al_compennet_pp(compennet_pp_apply, classifier: Classifier,
+                         imagenet_labels, target_idx, targeted, cam_scene,
+                         d_thr, setup_info, max_iterations: int = 50):
+    """The two-stage attacker (ref ``projector_based_attack.py:342-359``):
+    PerC-AL's projector variant on the camera image, then CompenNet++
+    compensates the result into a projector input.
+    ``compennet_pp_apply(cam, scene) -> prj``; cam_scene [1, H, W, 3].
+
+    ``targeted`` is a bool (the reference's calls) or per-sample bools (the
+    fused batch of 10 targeted + 1 untargeted). The confidence margin is
+    0 for a targeted call and 40 otherwise; in a fused batch it is 40 and
+    applies to the untargeted samples only (the reference builds its
+    targeted attacker with confidence 0, a no-op for targeted masks).
+    Returns ``(cam_infer_best, prj_adv_best)``, NHWC."""
+    num_target = len(target_idx)
+    cam_scene_b = cam_scene.expand(num_target, *cam_scene.shape[1:])
+    if isinstance(targeted, (bool, np.bool_)):
+        confidence = 0 if targeted else 40
+    else:
+        confidence = 40
+    attacker = PerC_AL(max_iterations=max_iterations, alpha_l_init=1.0,
+                       alpha_c_init=0.5, confidence=confidence)
+    cp_sz = tuple(int(c) for c in setup_info["classifier_crop_sz"])
+    cam_infer_best = attacker.adversary_projector(
+        make_attack_logits_fn(classifier, cp_sz), cam_scene_b,
+        np.asarray(target_idx), imagenet_labels=imagenet_labels, d_thr=d_thr,
+        targeted=targeted)
+    with torch.no_grad():
+        prj_adv_best = compennet_pp_apply(cam_infer_best, cam_scene_b)
+    return cam_infer_best, prj_adv_best
 
 
 def pcnet_warp(trained, cache: Optional[PCNetCache] = None) -> FixedWarp:
@@ -239,14 +272,40 @@ def _run_spaa_sweep(cfg, trained, classifier, cam_scene, target_idx,
     return cam_best, prj_best
 
 
+def _run_percal_sweep(cfg, trained, classifier, cam_scene, target_idx,
+                      true_idx, setup_info, setup_path, attacker_cfg_str,
+                      classifier_name, imagenet_labels):
+    """Per (stealth loss, d_thr) config, the 10 targeted + 1 untargeted
+    samples as ONE PerC-AL batch (per-sample normalisation makes it the
+    reference's two runs), then the reference directory layout. Returns
+    the last config's ``(cam_infer_best, prj_adv_best)``."""
+    out = None
+    for stealth_loss in cfg.stealth_losses:
+        for d_thr in cfg.d_threshes:
+            folder = join(attacker_cfg_str, stealth_loss, str(d_thr),
+                          classifier_name)
+            all_idx = list(target_idx) + [true_idx]
+            targeted = np.asarray([True] * len(target_idx) + [False])
+            out = perc_al_compennet_pp(
+                trained.apply, classifier, imagenet_labels, all_idx,
+                targeted, cam_scene, d_thr, setup_info,
+                max_iterations=int(cfg.get("attack_iters", 50)))
+            cam_all, prj_all = (t.detach().cpu().numpy() for t in out)
+            save_imgs(cam_all, join(setup_path, "cam/infer/adv", folder))
+            save_imgs(prj_all, join(setup_path, "prj/adv", folder))
+    return out
+
+
 def run_projector_based_attack(cfg, weights_dir: Optional[str] = None,
                                device=None):
-    """Sweep entry point (ref ``projector_based_attack.py:24-148``), SPAA only.
+    """Sweep entry point (ref ``projector_based_attack.py:24-148``), SPAA
+    and PerC-AL+CompenNet++.
 
-    ``weights_dir``: where to look for classifier ``.pth`` files. PCNet
-    trains (or, with ``cfg.load_pretrained`` and a checkpoint under its
-    config-string key, loads) through ``train.pipeline.train_eval_pcnet``;
-    ``cfg.max_iters`` overrides its training budget."""
+    ``weights_dir``: where to look for classifier ``.pth`` files. The
+    attacker's model (PCNet for SPAA, CompenNet++ for PerC-AL) trains, or
+    with ``cfg.load_pretrained`` and a checkpoint under its config-string
+    key loads, through ``train.pipeline``; ``cfg.max_iters`` overrides its
+    training budget and ``cfg.init_max_iters`` CompenNet's pre-training."""
     dev = resolve_device(device)
     attacker_name = cfg.attacker_name
     if attacker_name not in ATTACKER_NAMES:
@@ -275,10 +334,16 @@ def run_projector_based_attack(cfg, weights_dir: Optional[str] = None,
         model_cfg = get_model_train_cfg(
             None, cfg.data_root, [setup_name],
             load_pretrained=cfg.load_pretrained, plot_on=cfg.plot_on)
-        model_cfg.model_list = ["PCNet"]
         if "max_iters" in cfg:
             model_cfg.max_iters = cfg.max_iters
-        trained, _, model_cfg = train_eval_pcnet(model_cfg, dev)
+        if attacker_name == "SPAA":
+            model_cfg.model_list = ["PCNet"]
+            trained, _, model_cfg = train_eval_pcnet(model_cfg, dev)
+        else:
+            model_cfg.model_list = ["CompenNet++"]
+            if "init_max_iters" in cfg:
+                model_cfg.init_max_iters = cfg.init_max_iters
+            trained, _, model_cfg = train_eval_compennet_pp(model_cfg, dev)
         cfg.model_cfg = dict(model_cfg)
         attacker_cfg_str = to_attacker_cfg_str(attacker_name)[0]
 
@@ -294,9 +359,15 @@ def run_projector_based_attack(cfg, weights_dir: Optional[str] = None,
             print(f"\n---- [{attacker_name}] attacking [{classifier_name}], "
                   f"original prediction: ({imagenet_labels[true_idx]}, "
                   f"p={p.max():.2f}) ----")
-            _run_spaa_sweep(cfg, trained, classifier, cam_scene, target_idx,
-                            true_idx, setup_info, setup_path,
-                            attacker_cfg_str, classifier_name)
+            if attacker_name == "SPAA":
+                _run_spaa_sweep(cfg, trained, classifier, cam_scene,
+                                target_idx, true_idx, setup_info, setup_path,
+                                attacker_cfg_str, classifier_name)
+            else:
+                _run_percal_sweep(cfg, trained, classifier, cam_scene,
+                                  target_idx, true_idx, setup_info,
+                                  setup_path, attacker_cfg_str,
+                                  classifier_name, imagenet_labels)
 
         print(f"\nThe next step is to project and capture [{attacker_name}] "
               f"generated adversarial projections in "

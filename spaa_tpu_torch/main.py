@@ -10,17 +10,18 @@ Steps (reference ``main.py`` cell numbers in parens):
   5 attack           run the SPAA attack sweep                     (5.1)
   6 capture-attack   re-project adversarial images, capture real   (5.2)
   7 summarize        SPAA per-setup stats + montages               (5.2)
-  8 percal           PerC-AL+CompenNet++ (not ported yet)          (6.1-6.2)
+  8 percal           PerC-AL+CompenNet++: train CompenNet++, attack,
+                     replay, summarize                             (6.1-6.2)
   9 one-pixel        One-pixel_DE (not ported yet)                 (7.1)
   10 summarize-all   gather + pivot table, paper Table 1           (8)
 
 Runs on ``cuda`` unless ``--device cpu``. Real projector/camera hardware
-(``--hardware``) and steps 8-9 are not ported yet and raise
+(``--hardware``) and step 9 are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 
 Usage:
   python -m spaa_tpu_torch.main --data-root data --setup-name sim_test \\
-      --steps 1-7,10
+      --steps 1-8,10
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ import os
 import time
 from os.path import join
 
-NOT_PORTED_STEPS = {8: "item 5 (PerC-AL)", 9: "item 6 (One-pixel DE)"}
+NOT_PORTED_STEPS = {9: "item 6 (One-pixel DE)"}
+# the attackers step 10 gathers: those the port has (One-pixel DE: item 6)
+GATHERED_ATTACKERS = ("SPAA", "PerC-AL+CompenNet++")
 
 
 def _parse_steps(spec: str):
@@ -57,7 +60,8 @@ def parse_args(argv=None):
                     help="with --hardware (not ported yet)")
     ap.add_argument("--load-pretrained", action="store_true")
     ap.add_argument("--train-iters", type=int, default=None,
-                    help="debug/CI: override the PCNet training budget")
+                    help="debug/CI: override the model training budgets "
+                         "(PCNet, CompenNet++ and CompenNet's pre-training)")
     ap.add_argument("--attack-iters", type=int, default=None,
                     help="debug/CI: override the attack iteration budget")
     ap.add_argument("--classifiers", nargs="*", default=None,
@@ -103,17 +107,19 @@ def main(argv=None) -> None:
     setup_name = args.setup_name
     setup_path = join(data_root, "setups", setup_name)
 
-    def _apply_attack_overrides(cfg):
+    def _apply_attack_overrides(cfg, grids: bool = False):
+        # grids only for SPAA: PerC-AL's (loss, d_thr) grid is fixed
         if args.classifiers:
             cfg.classifier_names = list(args.classifiers)
-        if args.stealth_losses:
+        if grids and args.stealth_losses:
             cfg.stealth_losses = list(args.stealth_losses)
-        if args.d_threshes:
+        if grids and args.d_threshes:
             cfg.d_threshes = list(args.d_threshes)
         if args.attack_iters:
             cfg.attack_iters = int(args.attack_iters)
         if args.train_iters:
             cfg.max_iters = int(args.train_iters)
+            cfg.init_max_iters = int(args.train_iters)
         return cfg
 
     summarize_kw = dict(
@@ -226,7 +232,7 @@ def main(argv=None) -> None:
     if 5 in steps:
         t0 = step(5, "attack")
         cfg = _apply_attack_overrides(get_attacker_cfg(
-            "SPAA", data_root, [setup_name], load_pretrained=True))
+            "SPAA", data_root, [setup_name], load_pretrained=True), grids=True)
         run_projector_based_attack(cfg, weights_dir=args.weights_dir,
                                    device=dev)
         done(5, t0)
@@ -235,7 +241,8 @@ def main(argv=None) -> None:
     if 6 in steps:
         t0 = step(6, "replay")
         cfg = _apply_attack_overrides(get_attacker_cfg("SPAA", data_root,
-                                                       [setup_name]))
+                                                       [setup_name]),
+                                      grids=True)
         project_capture_real_attack(cfg, procams)
         done(6, t0)
 
@@ -247,12 +254,40 @@ def main(argv=None) -> None:
         print(df.head())
         done(7, t0)
 
-    # ---- 10. gather + pivot table, paper Table 1 (ref main.py:214-225);
-    # the attackers the port has (PerC-AL and One-pixel DE: items 5-6)
+    # ---- 8. PerC-AL+CompenNet++: train CompenNet++, attack, replay,
+    # summarize (ref main.py:169-196, cells 6.1-6.2)
+    if 8 in steps:
+        t0 = step(8, "percal")
+        # ref main.py:177 trains CompenNet++ afresh; --load-pretrained
+        # reuses a cached checkpoint
+        cfg = _apply_attack_overrides(get_attacker_cfg(
+            "PerC-AL+CompenNet++", data_root, [setup_name],
+            load_pretrained=args.load_pretrained))
+        cfg = run_projector_based_attack(cfg, weights_dir=args.weights_dir,
+                                         device=dev)
+        t1 = time.time()
+        project_capture_real_attack(cfg, procams)
+        t2 = time.time()
+        df = summarize_single_attacker(
+            "PerC-AL+CompenNet++", data_root, [setup_name],
+            classifier_names=summarize_kw["classifier_names"],
+            weights_dir=args.weights_dir, device=dev)
+        print(df.head())
+        print(f"[step 8] train+attack {t1 - t0:.3f} s, replay {t2 - t1:.3f} "
+              f"s, summarize {time.time() - t2:.3f} s", flush=True)
+        done(8, t0)
+
+    # ---- 10. gather + pivot table, paper Table 1 (ref main.py:214-225):
+    # the attackers the port has, those with a stats table of this setup
     if 10 in steps:
         t0 = step(10, "summarize-all")
+        from spaa_tpu_torch.attack import to_attacker_cfg_str
+        gathered = [a for a in GATHERED_ATTACKERS if os.path.exists(join(
+            setup_path, "ret", to_attacker_cfg_str(a)[0], "stats.txt"))]
+        print(f"Gathering {gathered} (no stats table for "
+              f"{sorted(set(GATHERED_ATTACKERS) - set(gathered))})")
         _, pivot_table = summarize_all_attackers(
-            ["SPAA"], data_root, [setup_name], recreate_stats_and_imgs=False,
+            gathered, data_root, [setup_name], recreate_stats_and_imgs=False,
             weights_dir=args.weights_dir, device=dev)
         print(f"\n------ Pivot table of 1 setup in {data_root} ------")
         print(pivot_table.to_string())

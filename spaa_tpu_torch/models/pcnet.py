@@ -15,14 +15,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
+from spaa_tpu_torch.models.init import draw_spaa_tpu_init
 from spaa_tpu_torch.models.shading_net import ShadingNetSPAA, SurfaceFeatures
 from spaa_tpu_torch.models.warping_net import WarpingNet
-from spaa_tpu_torch.ops.image import grid_sample
-from spaa_tpu_torch.utils import threefry
 
 
 class PCNetCache(NamedTuple):
@@ -66,10 +64,8 @@ class PCNet(nn.Module):
         ``warped``: the already-warped projector image (NHWC), e.g. from
         the fixed-grid kernel, which skips WarpingNet."""
         if warped is None:
-            grid = cache.fine_grid if cache is not None else None
-            if grid is None:
-                grid = self.warping_net.fine_grid()
-            warped = grid_sample(x, grid)
+            warped = self.warping_net(
+                x, cache.fine_grid if cache is not None else None)
         xw = _nchw(warped)
         if self.use_mask and mask is not None:
             xw = xw * mask.reshape(mask.shape[-3], mask.shape[-2])
@@ -83,43 +79,8 @@ class PCNet(nn.Module):
 
     def init_weights(self, rng_key) -> "PCNet":
         """``spaa_tpu``'s initial weights for the root key ``rng_key``
-        (``utils.seed.reset_rng_seeds``), drawn as flax draws them
-        (``utils/threefry.py``) with ``spaa_tpu``'s distributions
-        (``models/layers.py``, reference ``models.py:55-58``): convolutions
-        He-normal, except the grid refiner's N(0, 1e-4); transposed
-        convolutions U(+-1/sqrt(k*k*in)); every bias U(+-1/sqrt(fan_in))
-        with torch's fan_in; affine identity and TPS theta 1e-3 (the
-        constructor's values). Kernels are drawn in flax's HWIO layout,
-        each kernel then its bias, under the module's name path."""
-        refine = set()
-        if self.warping_net.with_refine:
-            refine = {id(m) for m in self.warping_net.grid_refine_net.modules()}
-
-        with torch.no_grad():
-            for name, m in self.named_modules():
-                if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                    continue
-                path = name.split(".")
-                k_key, b_key = (threefry.param_key(rng_key, path, c)
-                                for c in (1, 2))
-                if isinstance(m, nn.ConvTranspose2d):
-                    cin, cout, kh, kw = m.weight.shape
-                    bound = (kh * kw * cin) ** -0.5
-                    w = threefry.uniform(k_key, (kh, kw, cin, cout), -bound,
-                                         bound).transpose(2, 3, 0, 1)
-                    fan_bias = kh * kw * cout
-                else:
-                    cout, cin, kh, kw = m.weight.shape
-                    std = 1e-4 if id(m) in refine \
-                        else (2.0 / (kh * kw * cin)) ** 0.5
-                    w = threefry.normal(k_key, (kh, kw, cin, cout),
-                                        std).transpose(3, 2, 0, 1)
-                    fan_bias = kh * kw * cin
-                bound = fan_bias ** -0.5
-                m.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
-                m.bias.copy_(torch.from_numpy(threefry.uniform(
-                    b_key, (cout,), -bound, bound)))
-        return self
+        (``models.init.draw_spaa_tpu_init``)."""
+        return draw_spaa_tpu_init(self, rng_key)
 
     def simplify_cache(self, s: torch.Tensor) -> PCNetCache:
         """Bake the grid (and the surface features when ``use_rough`` is

@@ -1,17 +1,18 @@
 """WarpingNet: learnable affine + TPS + CNN-refined sampling grid.
 
 Counterpart of ``spaa_tpu/models/warping_net.py`` (reference
-``models.py:98-185``). At attack time only the baked grid is used
+``models.py:98-185``). In PCNet's attack only the baked grid is used
 (:meth:`WarpingNet.simplify`); the warp itself is the fixed-grid kernel of
 ``spaa_tpu_torch.ops.warp``. In training, PCNet's forward builds the grid
 with :meth:`WarpingNet.fine_grid` and samples through ``ops.image``'s
-``grid_sample``, both differentiable in the grid's parameters. Grids are
-[N, H, W, 2] with (x, y) in [-1, 1].
+``grid_sample``, both differentiable in the grid's parameters; CompenNet++
+calls :meth:`WarpingNet.forward`, which samples the same way, as
+``spaa_tpu``'s does. Grids are [N, H, W, 2] with (x, y) in [-1, 1].
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +69,15 @@ class WarpingNet(nn.Module):
             refine = self.grid_refine_net(grid.permute(0, 3, 1, 2))
             grid = grid + refine.permute(0, 2, 3, 1)
         return torch.clamp(grid, -1.0, 1.0)
+
+    def forward(self, x: torch.Tensor,
+                fine_grid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Warp NHWC ``x`` [N, H, W, C] to ``out_size``; a precomputed
+        ``fine_grid`` (:meth:`simplify`) skips the grid math (ref
+        ``models.py:179-181``). The grid stays [1, H, W, 2] for the batch."""
+        if fine_grid is None:
+            fine_grid = self.fine_grid()
+        return grid_sample(x, fine_grid)
 
     def simplify(self) -> torch.Tensor:
         """The baked sampling grid."""

@@ -1,20 +1,23 @@
 """Reproduce the SPAA benchmark with the port (counterpart of the root
 ``reproduce_paper_results.py``, reference ``reproduce_paper_results.py``).
 
-On every setup: train or load PCNet, run the attackers, replay their
-adversarial projections through ProCams, and summarize into per-setup
-stats tables and the cross-setup pivot table (paper Table 1 layout).
+On every setup: train or load each attacker's model (PCNet for SPAA,
+CompenNet++ for PerC-AL), run the attackers, replay their adversarial
+projections through ProCams, and summarize into per-setup stats tables
+and the cross-setup pivot table (paper Table 1 layout).
 
-Runs on ``cuda`` unless ``--device cpu``. Only SPAA is ported so far: the
-default attacker list is the JAX script's, and an attacker that is not
-ported yet raises before any work starts (pass ``--attackers SPAA``).
+Runs on ``cuda`` unless ``--device cpu``. The default attacker list is the
+JAX script's: SPAA and PerC-AL+CompenNet++, and One-pixel DE with
+``--sim``, which is not ported yet and raises before any work starts (pass
+``--attackers SPAA PerC-AL+CompenNet++``; ROADMAP.md queue A item 6).
 ``--multi-setup-train`` / ``--multi-setup-attack`` are not ported yet
-either (ROADMAP.md queue A item 7).
+either (item 7).
 
 Usage:
-  python -m spaa_tpu_torch.reproduce_paper_results --sim --attackers SPAA
+  python -m spaa_tpu_torch.reproduce_paper_results --sim \\
+      --attackers SPAA PerC-AL+CompenNet++
   python -m spaa_tpu_torch.reproduce_paper_results --data-root <root> \\
-      --attackers SPAA --summarize-only
+      --summarize-only
 """
 
 from __future__ import annotations
@@ -32,8 +35,7 @@ BENCHMARK_SETUPS = [
     "bucket", "coffee_mug", "lotion", "paper_towel", "pillow",
     "remote_control", "soccer_ball", "teddy",
 ]
-NOT_PORTED_ATTACKERS = {"PerC-AL+CompenNet++": "item 5 (PerC-AL)",
-                        "One-pixel_DE": "item 6 (One-pixel DE)"}
+NOT_PORTED_ATTACKERS = {"One-pixel_DE": "item 6 (One-pixel DE)"}
 
 
 class PhaseLog:
@@ -117,7 +119,8 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(
                 f"{a} (ROADMAP.md queue A {NOT_PORTED_ATTACKERS[a]})"
-                for a in missing) + "; pass --attackers SPAA")
+                for a in missing)
+            + "; pass --attackers SPAA PerC-AL+CompenNet++")
     plog = PhaseLog(args.phase_json)
 
     from spaa_tpu_torch.attack import (get_attacker_cfg,

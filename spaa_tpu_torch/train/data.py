@@ -51,11 +51,13 @@ def nayar_separation(im_cb: np.ndarray, b: float = 0.9):
     return direct, indirect
 
 
-def load_data(data_root: str, setup_name: str) -> dict:
+def load_data(data_root: str, setup_name: str,
+              compensation: bool = False) -> dict:
     """One setup's captures (ref ``load_data``, ``train_network.py:39-82``):
     cam_scene [1,H,W,3], cam_train/cam_valid [N,H,W,3], prj_train/prj_valid
     [N,Hp,Wp,3], mask [H,W,1] float, mask_corners (4 [x, y] in [-1, 1]),
-    setup_info."""
+    setup_info. ``compensation`` selects ``threshold_im``'s CompenNet++
+    mask."""
     setup_path = join(data_root, "setups", setup_name)
     setup_info = load_setup_info(setup_path)
     cam_scene = imread_dir(join(setup_path, "cam/raw/ref"))[1:2]
@@ -66,7 +68,8 @@ def load_data(data_root: str, setup_name: str) -> dict:
                            index=list(range(cam_valid.shape[0])))
     im_direct, _ = nayar_separation(imread_dir(join(setup_path, "cam/raw/cb")),
                                     b=0.9)
-    im_mask, _, mask_corners = threshold_im(im_direct)
+    im_mask, _, mask_corners = threshold_im(im_direct,
+                                            compensation=compensation)
     return dict(cam_scene=cam_scene, cam_train=cam_train, cam_valid=cam_valid,
                 prj_train=prj_train, prj_valid=prj_valid,
                 mask=im_mask.astype(np.float32)[..., None],

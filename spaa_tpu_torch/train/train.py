@@ -1,11 +1,12 @@
-"""Training runtime for PCNet (counterpart of ``spaa_tpu/train/train.py``,
-reference ``train_network.py``).
+"""Training runtime for PCNet and CompenNet++ (counterpart of
+``spaa_tpu/train/train.py``, reference ``train_network.py``).
 
   - the loss menu l1/l2/ssim/huber with the l1 -> l1+ssim curriculum
     weight (``compute_loss``);
   - three Adam groups with their own learning rates and milestones, and
     torch Adam's coupled weight decay on the shading group only
-    (``make_pcnet_optimizer``);
+    (``make_pcnet_optimizer``); one Adam with a StepLR for CompenNet and
+    CompenNet++ (``make_compennet_pp_optimizer``);
   - the minibatch plan drawn up front with Python's ``random.sample``, as
     the reference draws it, so both packages take the same minibatches;
   - ``train_model``: one step per iteration over uint8 train tensors that
@@ -125,6 +126,22 @@ def make_pcnet_optimizer(model: torch.nn.Module, cfg):
     lambdas = [lambda k, m=m: gamma if k >= m else 1.0
                for _, _, m in PCNET_GROUPS]
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambdas)
+
+
+def make_compennet_pp_optimizer(model: torch.nn.Module, cfg):
+    """One Adam over ALL parameters (affine and TPS theta included) at
+    ``cfg.lr`` with weight decay ``l2_reg``, scaled by ``lr_drop_ratio`` at
+    every multiple of ``lr_drop_rate`` up to ``max_iters`` (a StepLR, ref
+    ``train_network.py:145-148``; the update counted from 0 as ``k`` takes
+    one more drop at each boundary ``b <= k``, as optax's
+    ``piecewise_constant_schedule``). Returns ``(optimizer, scheduler)``."""
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr,
+                           weight_decay=cfg.l2_reg)
+    gamma = float(cfg.lr_drop_ratio)
+    rate = int(cfg.lr_drop_rate)
+    bounds = range(rate, int(cfg.max_iters) + 1, rate)
+    return opt, torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda k: gamma ** sum(k >= b for b in bounds))
 
 
 def sample_batch_indices(num_train: int, batch_size: int, max_iters: int,

@@ -2,11 +2,14 @@
 ``spaa_tpu/utils/imgproc_host.py``).
 
   - ``threshold_im``: direct-light mask (gray, uint8, 3x3 Gaussian, 2-class
-    multi-Otsu), its ROI (the filled convex hull of the foreground) and the
+    multi-Otsu; 4-class for CompenNet++), its ROI (the filled convex hull
+    of the foreground, or of its largest contour for CompenNet++) and the
     bounding-box corners in [-1, 1] grid coordinates (ref
     ``img_proc.py:13-65``). The mask half reproduces cv2's uint8
     ``GaussianBlur`` in 8-bit fixed point, so it is bit-exact; the ROI
-    follows cv2's ``fillConvexPoly`` (LINE_8 outline, fixed-point scan).
+    follows cv2's ``fillConvexPoly`` (LINE_8 outline, fixed-point scan),
+    the largest contour cv2's ``findContours`` border tracing and
+    ``contourArea``.
   - ``checkerboard``, ``create_gray_pattern``, ``create_number_pattern``:
     calibration and sync-test patterns.
   - montage helpers for the result summaries: ``make_grid``,
@@ -204,38 +207,129 @@ def _fill_convex_poly(shape, v: np.ndarray) -> np.ndarray:
     return img
 
 
+# cv2's chain-code directions (x, y): 0 right, then counter-clockwise on
+# the screen (y grows downwards)
+_CHAIN_DX = (1, 1, 0, -1, -1, -1, 0, 1)
+_CHAIN_DY = (0, -1, -1, -1, 0, 1, 1, 1)
+
+
+def _outer_border(fg: np.ndarray, x0: int, y0: int) -> np.ndarray:
+    """The outer border of the 8-connected component whose first pixel in
+    raster order is (x0, y0), traced as ``cv2.findContours`` traces it
+    (Suzuki-Abe: the first neighbour clockwise from the left one, then
+    counter-clockwise from the pixel came from, until the start pixel is
+    re-entered from the first move). ``fg``: the bool image padded by one
+    zero pixel on every side; returns the [N, 2] (x, y) points, padded."""
+    for s in (3, 2, 1, 0, 7, 6, 5, 4):
+        if fg[y0 + _CHAIN_DY[s], x0 + _CHAIN_DX[s]]:
+            break
+    else:
+        return np.array([[x0, y0]])              # an isolated pixel
+    x1, y1 = x0 + _CHAIN_DX[s], y0 + _CHAIN_DY[s]
+    pts = []
+    x3, y3 = x0, y0
+    while True:
+        for k in range(1, 9):
+            t = (s + k) & 7
+            x4, y4 = x3 + _CHAIN_DX[t], y3 + _CHAIN_DY[t]
+            if fg[y4, x4]:
+                break
+        pts.append((x3, y3))
+        if (x4, y4) == (x0, y0) and (x3, y3) == (x1, y1):
+            return np.array(pts)
+        x3, y3 = x4, y4
+        s = (t + 4) & 7
+
+
+def _component_starts(mask: np.ndarray) -> list:
+    """(x, y) of the first pixel in raster order of every 8-connected
+    foreground component, in raster order."""
+    h, w = mask.shape
+    seen = np.zeros_like(mask, bool)
+    starts = []
+    for y0, x0 in zip(*np.nonzero(mask)):
+        if seen[y0, x0]:
+            continue
+        starts.append((int(x0), int(y0)))
+        seen[y0, x0] = True
+        stack = [(y0, x0)]
+        while stack:
+            y, x = stack.pop()
+            for yy in range(max(y - 1, 0), min(y + 2, h)):
+                for xx in range(max(x - 1, 0), min(x + 2, w)):
+                    if mask[yy, xx] and not seen[yy, xx]:
+                        seen[yy, xx] = True
+                        stack.append((yy, xx))
+    return starts
+
+
+def _shoelace_area(pts: np.ndarray) -> float:
+    """``cv2.contourArea``: the absolute shoelace area of a closed polygon."""
+    x, y = pts[:, 0].astype(np.int64), pts[:, 1].astype(np.int64)
+    return abs(int(np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y))) / 2.0
+
+
+def _largest_contour(mask: np.ndarray) -> np.ndarray:
+    """The contour ``max(cv2.findContours(mask, RETR_TREE, ...)[0],
+    key=cv2.contourArea)`` picks, as (x, y) points: the outer border of
+    largest area (a hole's border lies inside its component's outer
+    border, so it never has the larger area). cv2 lists the outermost
+    borders in reverse raster order of their first pixels and ``max`` keeps
+    the first of equal areas, so a tie goes to the component found last
+    (a component inside another's hole is listed after them: a tie of one
+    with an outermost component is not followed)."""
+    fg = np.pad(mask, 1)
+    best, best_area = None, -1.0
+    for x0, y0 in _component_starts(mask):
+        pts = _outer_border(fg, x0 + 1, y0 + 1) - 1
+        area = _shoelace_area(pts)
+        if area >= best_area:
+            best, best_area = pts, area
+    return best
+
+
+def _compensation_mask(im: np.ndarray) -> np.ndarray:
+    """CompenNet++'s direct-light mask (ref ``img_proc.py:24-27``): the
+    thresholds of a 4-class multi-Otsu on the blurred gray image, applied
+    to the UNblurred one, keeping the brightest class."""
+    im_u8 = _rgb2gray_u8(im)
+    ths = multi_otsu(_gaussian_blur3_u8(im_u8), classes=4)
+    return np.digitize(im_u8, bins=ths) > 2
+
+
 def threshold_im(im_in: np.ndarray, compensation: bool = False):
     """Direct-light binary mask, ROI and bounding-box corners.
 
     im_in: HxWx3 float in [0, 1], or an HxW bool mask. Returns
     (im_mask [H, W] bool, im_roi [H, W] bool, corners: 4 [x, y] in [-1, 1]
-    grid coordinates). The corners are the bounding box of every contour
-    point, i.e. of the foreground, with cv2 ``boundingRect``'s inclusive
-    width: ``x + w`` is one past the last foreground column."""
-    if compensation:
-        raise NotImplementedError(
-            "threshold_im(compensation=True) serves CompenNet++ only and is "
-            "not ported yet (ROADMAP.md queue A item 5: PerC-AL)")
+    grid coordinates). The ROI is the filled convex hull and the corners
+    the bounding box (cv2 ``boundingRect``'s inclusive width: ``x + w`` is
+    one past the last column) of the contour points: of every contour,
+    i.e. the whole foreground, or with ``compensation`` (CompenNet++'s
+    mask, 4-class Otsu) of the largest contour only."""
     if im_in.ndim == 3:
-        im_mask = direct_light_mask(im_in)
+        im_mask = (_compensation_mask(im_in) if compensation
+                   else direct_light_mask(im_in))
     elif im_in.dtype == bool:
         im_mask = im_in
     else:
         raise ValueError("expected HxWx3 float or HxW bool")
-    rows = np.flatnonzero(im_mask.any(axis=1))
-    if rows.size == 0:
+    if not im_mask.any():
         raise ValueError("threshold_im: the mask has no foreground pixel")
-    cols = np.flatnonzero(im_mask.any(axis=0))
-    # each foreground row's two extreme pixels span the same hull as all
-    # foreground (and contour) pixels
-    first = im_mask[rows].argmax(axis=1)
-    last = im_mask.shape[1] - 1 - im_mask[rows, ::-1].argmax(axis=1)
-    pts = np.concatenate([np.stack([first, rows], 1),
-                          np.stack([last, rows], 1)])
+    if compensation:
+        pts = _largest_contour(im_mask)
+    else:
+        # each foreground row's two extreme pixels span the same hull as
+        # all foreground (and contour) pixels
+        rows = np.flatnonzero(im_mask.any(axis=1))
+        first = im_mask[rows].argmax(axis=1)
+        last = im_mask.shape[1] - 1 - im_mask[rows, ::-1].argmax(axis=1)
+        pts = np.concatenate([np.stack([first, rows], 1),
+                              np.stack([last, rows], 1)])
     im_roi = _fill_convex_poly(im_mask.shape, _convex_hull(pts)) > 0
 
-    x, y = int(cols[0]), int(rows[0])
-    x2, y2 = int(cols[-1]) + 1, int(rows[-1]) + 1
+    x, y = (int(v) for v in pts.min(axis=0))
+    x2, y2 = (int(v) + 1 for v in pts.max(axis=0))
     ih, iw = im_mask.shape
     corners = [[x, y], [x2, y], [x2, y2], [x, y2]]
     corners = [[2 * (cx / iw) - 1, 2 * (cy / ih) - 1] for cx, cy in corners]

@@ -53,39 +53,45 @@ def _conv(name: str, p: dict, prefix: str, dtype=None) -> dict:
     return out
 
 
-def pcnet_state_dict(params: dict, dtype=None) -> dict:
-    """``spaa_tpu`` PCNet params -> ``spaa_tpu_torch`` PCNet state_dict."""
+def pcnet_state_dict(params: dict, dtype=None, prefix: str = "") -> dict:
+    """A ``spaa_tpu`` param tree of an image network (PCNet, CompenNet,
+    CompenNet++: convolutions, transposed convolutions, WarpingNet's
+    ``affine_mat`` and ``theta``) -> the port's state_dict; the module
+    paths are the same names."""
     sd = {}
-    wn = params["warping_net"]
-    sd["warping_net.affine_mat"] = _t(wn["affine_mat"], dtype)
-    sd["warping_net.theta"] = _t(wn["theta"], dtype)
-    for name, p in wn.get("grid_refine_net", {}).items():
-        sd.update(_conv(name, p, "warping_net.grid_refine_net.", dtype))
-    for name, p in params["shading_net"].items():
-        sd.update(_conv(name, p, "shading_net.", dtype))
+    for name, p in params.items():
+        if name in ("affine_mat", "theta"):
+            sd[f"{prefix}{name}"] = _t(p, dtype)
+        elif "kernel" in p:
+            sd.update(_conv(name, p, prefix, dtype))
+        else:
+            sd.update(pcnet_state_dict(p, dtype, f"{prefix}{name}."))
     return sd
 
 
 def pcnet_params(state_dict: dict) -> dict:
-    """The reverse: a port PCNet state_dict -> the ``spaa_tpu`` PCNet
-    param tree (float32 numpy, sorted keys), which ``utils.log``'s
-    checkpoint writer serialises for ``spaa_tpu.utils.log.load_checkpoint``."""
+    """The reverse of :func:`pcnet_state_dict`: float32 numpy leaves, keys
+    sorted, which ``utils.log``'s checkpoint writer serialises for
+    ``spaa_tpu.utils.log.load_checkpoint``."""
     tree: dict = {}
     for key, val in state_dict.items():
-        parts = key.split(".")
-        if parts[-1] in ("affine_mat", "theta"):
-            tree.setdefault(parts[0], {})[parts[-1]] = _np(val)
-            continue
-        *mods, leaf = parts
+        *mods, leaf = key.split(".")
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
-        if leaf == "weight":
+        if leaf in ("affine_mat", "theta"):
+            node[leaf] = _np(val)
+        elif leaf == "weight":
             node["kernel"] = _np(val, _TCONV_PERM if mods[-1] in _TCONVS
                                  else _CONV_FROM_TORCH)
         else:
             node["bias"] = _np(val)
     return _sorted(tree)
+
+
+# CompenNet and CompenNet++ are walked the same way, under flax's names
+compennet_state_dict = compennet_pp_state_dict = pcnet_state_dict
+compennet_params = compennet_pp_params = pcnet_params
 
 
 def _bn(p: dict, prefix: str, dtype=None) -> dict:

@@ -10,8 +10,13 @@
 - ``reproduce_paper_results --sim --summarize-only`` on a synthetic
   ``sim_benchmark`` tree writes ``stats_all``, the pivot and the phase
   JSON;
-- what is not ported raises ``NotImplementedError`` before any work, and
-  both entry points default to ``cuda``.
+- ``main --steps 1,2,8,10`` (PerC-AL+CompenNet++ at the same sizes) writes
+  its layout, a 71-column row and ``stats_all``; then
+  ``reproduce_paper_results --summarize-only`` runs the default attacker
+  list (SPAA and PerC-AL);
+- what is not ported (One-pixel DE, the ``--multi-setup-*`` flags, the
+  hardware) raises ``NotImplementedError`` before any work, and both
+  entry points default to ``cuda``.
 """
 
 import glob
@@ -118,19 +123,64 @@ def test_reproduce_summarize_only_on_cpu(tmp_path):
                          recursive=True)) == 11
 
 
+def test_main_step_8_and_the_default_attackers_on_cpu(tmp_path):
+    """``main --steps 1,2,8,10`` (PerC-AL+CompenNet++: CompenNet pre-trained
+    and CompenNet++ trained 3 iterations, PerC-AL 2 iterations, ResNet-18,
+    its one (camdE, 11) config), then ``reproduce_paper_results
+    --summarize-only`` with the default attacker list (SPAA and PerC-AL
+    without ``--sim``)."""
+    weights = _weights(tmp_path)
+    data = str(tmp_path / "data")
+    TM.main(["--data-root", data, "--setup-name", "vtest", "--steps",
+             "1,2,8,10", "--device", "cpu", "--sim-size", "32", "32", "32",
+             "24", "--num-train", "8", "--train-iters", "3",
+             "--attack-iters", "2", "--classifiers", "resnet18",
+             "--weights-dir", weights])
+    setup = join(data, "setups", "vtest")
+    pcfg = to_attacker_cfg_str("PerC-AL+CompenNet++")[0]
+    folder = join(pcfg, "camdE", "11", "resnet18")
+    for sub in ("prj/adv", "cam/infer/adv", "cam/raw/adv", "ret"):
+        assert len(glob.glob(join(setup, sub, folder, "img_*.png"))) == 11
+    assert os.path.exists(join(data, "..", "checkpoint",
+                               "init_CompenNet_l1+ssim_500_48_500_0.001_0.2_"
+                               "800_0.0001.flax"))
+    assert len(os.listdir(join(setup, "prj/infer/test",
+                               "CompenNet++_l1+ssim_8_8_3"))) == 3
+    got = pd.read_csv(join(setup, "ret", pcfg, "stats.txt"), sep="\t")
+    assert got.shape == (1, 71)
+    assert list(got["Stealth_loss"]) == ["camdE"] and list(got["d_thr"]) \
+        == [11]
+    stats = pd.read_csv(join(data, "setups/stats_all.txt"), sep="\t")
+    assert list(stats["Attacker"]) == [pcfg]     # step 10: no SPAA table
+
+    # summarize's full grid stops a row at its first missing classifier
+    # (inception_v3 < resnet18): the ResNet-18 images stand in for it
+    for sub in ("prj/adv", "cam/infer/adv", "cam/raw/adv"):
+        shutil.copytree(join(setup, sub, folder), join(
+            setup, sub, pcfg, "camdE", "11", "inception_v3"))
+    phase_json = str(tmp_path / "phases.json")
+    TR.main(["--data-root", data, "--setups", "vtest", "--summarize-only",
+             "--device", "cpu", "--weights-dir", weights, "--phase-json",
+             phase_json])
+    rec = json.load(open(phase_json))
+    assert rec["attackers"] == ["SPAA", "PerC-AL+CompenNet++"]
+    assert rec["stats_all_rows"] == 2
+    pivot = read_xlsx(join(data, "setups/pivot_table_all.xlsx"))
+    assert len(pivot) == 3 and {r[0] for r in pivot[1:]} == {pcfg}
+
+
 def test_unported_paths_raise_and_cuda_is_the_default(tmp_path):
     root = str(tmp_path)
     for argv, what in ((["--hardware"], "HardwareProCams"),
-                       (["--steps", "8"], "item 5"),
-                       (["--steps", "1-9"], "item 5"),
+                       (["--steps", "1-9"], "item 6"),
                        (["--steps", "9"], "item 6")):
         with pytest.raises(NotImplementedError, match=what):
             TM.main(["--data-root", root, "--device", "cpu"] + argv)
-    for argv, what in (([], "PerC-AL"), (["--sim"], "One-pixel_DE"),
+    for argv, what in ((["--sim"], "One-pixel_DE"),
+                       (["--sim", "--attackers", "One-pixel_DE"], "item 6"),
                        (["--attackers", "SPAA", "--multi-setup-train"],
                         "item 7"),
-                       (["--attackers", "SPAA", "--multi-setup-attack"],
-                        "item 7")):
+                       (["--multi-setup-attack"], "item 7")):
         with pytest.raises(NotImplementedError, match=what):
             TR.main(["--data-root", root, "--device", "cpu"] + argv)
     assert not os.listdir(root), "nothing may run before the raise"

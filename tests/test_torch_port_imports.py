@@ -18,7 +18,8 @@ import spaa_tpu_torch
 from spaa_tpu_torch.attack.orchestrate import (get_attacker_cfg,
                                                run_projector_based_attack)
 from spaa_tpu_torch.models.classifiers import Classifier
-from spaa_tpu_torch.train.pipeline import train_eval_pcnet
+from spaa_tpu_torch.train.pipeline import (train_eval_compennet_pp,
+                                           train_eval_pcnet)
 from spaa_tpu_torch.train.train import get_model_train_cfg
 from spaa_tpu_torch.utils.device import resolve_device
 from spaa_tpu_torch.utils.imgproc_host import threshold_im
@@ -49,7 +50,8 @@ def test_port_imports_nothing_forbidden():
         spaa_tpu_torch.__path__, "spaa_tpu_torch.")]
     assert sorted(res["modules"]) == sorted(expected)
     for name in ("ops.warp", "utils.table", "utils.xlsx", "utils.procams",
-                 "attack.summarize", "main", "reproduce_paper_results"):
+                 "attack.summarize", "main", "reproduce_paper_results",
+                 "attack.perc_al", "models.compen_net", "models.init"):
         assert "spaa_tpu_torch." + name in res["modules"], name
     assert not set(res["loaded"]) & set(FORBIDDEN), res["loaded"]
 
@@ -69,15 +71,28 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_eval_pcnet(get_model_train_cfg(["PCNet"], str(tmp_path),
                                              ["none"]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_eval_compennet_pp(get_model_train_cfg(
+            ["CompenNet++"], str(tmp_path), ["none"]))
+    cfg = get_attacker_cfg("PerC-AL+CompenNet++", str(tmp_path), ["none"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_projector_based_attack(cfg)
     assert resolve_device("cpu").type == "cpu"
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
 def test_unported_parts_raise_not_implemented(tmp_path):
-    for name in ("PerC-AL+CompenNet++", "One-pixel_DE"):
-        cfg = get_attacker_cfg(name, str(tmp_path), ["none"])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run_projector_based_attack(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        threshold_im(np.ones((4, 4, 3), np.float32), compensation=True)
+    cfg = get_attacker_cfg("One-pixel_DE", str(tmp_path), ["none"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
+        run_projector_based_attack(cfg, device="cpu")
+    assert not os.listdir(tmp_path), "nothing may run before the raise"
+    # PerC-AL+CompenNet++ is ported: it gets as far as reading the setup
+    cfg = get_attacker_cfg("PerC-AL+CompenNet++", str(tmp_path), ["none"])
+    with pytest.raises(FileNotFoundError):
+        run_projector_based_attack(cfg, device="cpu")
+    # ... and so is CompenNet++'s mask
+    mask = np.zeros((6, 8), bool)
+    mask[1:4, 2:7] = True
+    _, roi, corners = threshold_im(mask, compensation=True)
+    assert roi.sum() == 15 and corners[0] == [2 * 2 / 8 - 1, 2 * 1 / 6 - 1]
