@@ -51,20 +51,31 @@ Phases, each printed on its own lines:
    Inception-v3, the fused 10 targeted + 1 untargeted batch x 50
    iterations each: seconds, ms/iteration (5 iterations re-timed), peak
    memory, 22 PNGs, finite outputs in [0, 1], no warp launch;
-9. main path on the trained setup, ResNet-18 (224x224), VGG-16 (224x224)
+9. onepixel: ``run_projector_based_attack`` for One-pixel DE through the
+   port's ``SimProCams`` at the default budget (block 41, 4 generations,
+   population 50 untargeted and 10 targeted) on the three classifiers:
+   per classifier the captures, classifier batches, cache misses (0),
+   seconds split into captures and classification, success flags, 22
+   PNGs, no warp launch; ResNet-18's untargeted initial population and
+   first generation, captured once, classified on the card and on the CPU
+   (probabilities within 1e-4, trial-versus-parent decisions that differ,
+   bitwise equality of one image across batch sizes and positions); then
+   ``python -m spaa_tpu_torch.digital_one_pixel_attack`` as a child;
+10. main path on the trained setup, ResNet-18 (224x224), VGG-16 (224x224)
    and Inception-v3 (299x299): ``run_projector_based_attack`` with
    ``load_pretrained`` on the trained checkpoint, the full 132-image x
    50-iteration sweep per classifier: s/config, ms/iteration, peak memory,
    264 PNGs, finite outputs in [0, 1], 50 + 50 warp launches each;
-10. pipeline: as subprocesses, ``python -m spaa_tpu_torch.main --steps
-   6,7,8 --load-pretrained --train-iters 200`` (the replay of the 396
+11. pipeline: as subprocesses, ``python -m spaa_tpu_torch.main --steps
+   6,7,8,9 --load-pretrained --train-iters 200`` (the replay of the 396
    SPAA projections through the port's ``SimProCams``, the SPAA
    summarize: 36 rows of 71 columns, 396 montages; then step 8: the
    CompenNet++ checkpoint loaded, the PerC-AL attack, the replay of its 33
-   projections and its summarize, 3 rows) and ``python -m
-   spaa_tpu_torch.reproduce_paper_results --sim --attackers SPAA
-   PerC-AL+CompenNet++ --summarize-only --keep-existing-imgs``
-   (``stats_all`` and the pivot table, 39 rows); their replay and
+   projections and its summarize, 3 rows; then step 9: One-pixel DE on
+   the three classifiers and its summarize, 3 rows) and ``python -m
+   spaa_tpu_torch.reproduce_paper_results --sim --summarize-only
+   --keep-existing-imgs`` with the default attacker list (``stats_all``
+   and the pivot table, 42 rows, 462 montages); their replay and
    summarize seconds, summarize phases and peak device memory; checks of
    row, column and montage counts, finite metrics and success rates in
    [0, 1]; then the SPAA ResNet-18 rows summarized again in this process on
@@ -531,7 +542,8 @@ def phase_train(data_root, dev):
     from spaa_tpu_torch.train.train import (get_model_train_cfg,
                                             make_evaluator,
                                             make_pcnet_optimizer)
-    from spaa_tpu_torch.utils.seed import reset_rng_seeds
+    from spaa_tpu_torch.utils.seed import (reset_rng_seeds,
+                                           set_reproducibility)
 
     mc = get_model_train_cfg(["PCNet"], data_root, ["sim_setup"])
     mc.max_iters = TRAIN_ITERS
@@ -549,13 +561,11 @@ def phase_train(data_root, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cudnn.deterministic = True
+    set_reproducibility(True)
     try:
         trained, table, cfg = P.train_eval_pcnet(mc, dev)
     finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = False
+        set_reproducibility(False)
     torch.cuda.synchronize()
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -718,7 +728,8 @@ def phase_compennet(data_root, dev):
                                             make_compennet_pp_optimizer,
                                             make_evaluator)
     from spaa_tpu_torch.utils.io import imread_dir
-    from spaa_tpu_torch.utils.seed import reset_rng_seeds
+    from spaa_tpu_torch.utils.seed import (reset_rng_seeds,
+                                           set_reproducibility)
 
     mc = get_model_train_cfg(["CompenNet++"], data_root, ["sim_setup"])
     mc.max_iters = COMPEN_ITERS
@@ -738,14 +749,12 @@ def phase_compennet(data_root, dev):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     P.init_compennet = timed_init
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cudnn.deterministic = True
+    set_reproducibility(True)
     try:
         trained, table, cfg = P.train_eval_compennet_pp(mc, dev)
     finally:
         P.init_compennet = orig
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = False
+        set_reproducibility(False)
     torch.cuda.synchronize()
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -906,7 +915,166 @@ def phase_percal(data_root, dev):
     return seen
 
 
-def run_child(args, what, timeout=900):
+class TimedCapture:
+    """A simulator whose ``capture`` calls are counted and timed."""
+
+    def __init__(self, sim):
+        self.sim, self.n, self.s = sim, 0, 0.0
+
+    def capture(self, prj_im):
+        t0 = time.time()
+        out = self.sim.capture(prj_im)
+        self.s += time.time() - t0
+        self.n += 1
+        return out
+
+
+def phase_onepixel(data_root, dev):
+    """run_projector_based_attack for One-pixel DE at the default budget
+    (block 41, 4 generations, population 50 untargeted and 10 targeted)
+    through the port's SimProCams(seed=7), which made the setup: per
+    classifier the captures, classifier batches, cache misses (0 or the
+    phase fails), seconds split into captures and classification, success
+    flags, and no warp launch; then the fixed-population check of
+    :func:`onepixel_card_vs_cpu` and the digital attack as a child."""
+    import torch
+    from spaa_tpu_torch.attack import orchestrate as O
+    from spaa_tpu_torch.ops import warp as W
+    from spaa_tpu_torch.utils.sim_procams import (DEFAULT_SIM_SETUP_INFO,
+                                                  SimProCams)
+
+    sim = TimedCapture(SimProCams(dict(DEFAULT_SIM_SETUP_INFO), seed=7))
+    cfg = O.get_attacker_cfg("One-pixel_DE", data_root, ["sim_setup"])
+    seen = {}
+    orig = O._run_one_pixel
+
+    def timed(cfg_, atk, clf, *args):
+        batches = []
+        classify = clf.classify
+
+        def counted(im, crop_sz=(240, 240)):
+            t0 = time.time()
+            out = classify(im, crop_sz)      # ends in a copy to the host
+            batches.append((len(im), time.time() - t0))
+            return out
+
+        clf.classify = counted
+        n0, s0, m0 = sim.n, sim.s, atk.cache_misses
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        W.reset_launch_counts()
+        t0 = time.time()
+        tables = orig(cfg_, atk, clf, *args)
+        torch.cuda.synchronize()
+        seen[clf.name] = dict(
+            wall=time.time() - t0, captures=sim.n - n0, capture_s=sim.s - s0,
+            batches=batches, misses=atk.cache_misses - m0, tables=tables,
+            launches=dict(W.LAUNCHES), peak=torch.cuda.max_memory_allocated())
+        return tables
+
+    O._run_one_pixel = timed
+    try:
+        O.run_projector_based_attack(cfg, procams=sim,
+                                     weights_dir=join(REPO, "checkpoint"),
+                                     device=dev)
+    finally:
+        O._run_one_pixel = orig
+    setup_path = join(data_root, "setups", "sim_setup")
+    for name in ("inception_v3", "resnet18", "vgg16"):
+        s = seen[name]
+        gens = [b for b in s["batches"] if b[0] != 2]
+        finals = [b for b in s["batches"] if b[0] == 2]
+        clf_s = sum(t for _, t in s["batches"])
+        flags = [bool(t["success"][0]) for t in s["tables"]]
+        n_png = sum(len(os.listdir(join(setup_path, sub, "One-pixel_DE", "-",
+                                        "-", name)))
+                    for sub in ("prj/adv", "cam/raw/adv"))
+        log(f"[onepixel] {name}: 11 attacks in {s['wall']:.3f} s wall: "
+            f"{s['captures']} captures {s['capture_s']:.3f} s; "
+            f"{len(gens)} classifier batches (sizes "
+            f"{sorted({b for b, _ in gens})}) "
+            f"{sum(t for _, t in gens):.3f} s + {len(finals)} final pairs "
+            f"{sum(t for _, t in finals):.3f} s, classification {clf_s:.3f} "
+            f"s; the rest {s['wall'] - s['capture_s'] - clf_s:.3f} s; cache "
+            f"misses {s['misses']}; peak memory {s['peak'] / 2**30:.3f} GiB; "
+            f"{n_png} PNGs; launches {s['launches']}; success (untargeted, "
+            f"then 10 targeted) {flags}")
+        if s["misses"]:
+            raise AssertionError(f"{name}: {s['misses']} candidates missed "
+                                 "the prediction cache")
+        if s["captures"] > 761 or len(s["tables"]) != 11 or n_png != 22:
+            raise AssertionError(f"{name}: {s['captures']} captures, "
+                                 f"{len(s['tables'])} attacks, {n_png} PNGs")
+        if any(s["launches"].values()):
+            raise AssertionError(f"One-pixel DE launched the warp kernel: "
+                                 f"{s['launches']}")
+    onepixel_card_vs_cpu(data_root, dev, sim.sim)
+    lines = run_child(["spaa_tpu_torch.digital_one_pixel_attack"],
+                      "digital one-pixel attack (ResNet-18, sample.png)",
+                      timeout=300, tag="onepixel")
+    att = _grep(lines, r"^attack ([0-9.]+) s on (\S+), cache misses (\d+)")
+    if not att or att[0].group(3) != "0" or \
+            not att[0].group(2).startswith("cuda"):
+        raise AssertionError("the digital attack did not run on the card "
+                             "without cache misses")
+    return seen
+
+
+def onepixel_card_vs_cpu(data_root, dev, sim):
+    """ResNet-18's untargeted initial population and first generation of
+    trials (default budget), each captured once, classified on the card
+    and on the CPU: probabilities within 1e-4, the trial-versus-parent
+    decisions that differ, and whether one image scores bitwise equally
+    alone, in pairs and at another position of the batch."""
+    import numpy as np
+    import torch
+    from spaa_tpu_torch.attack.one_pixel import (BatchedDE, _bounds,
+                                                 perturb_image_np)
+    from spaa_tpu_torch.models.classifiers import Classifier
+    from spaa_tpu_torch.train.data import load_setup_info
+    from spaa_tpu_torch.utils.io import imread
+
+    setup_path = join(data_root, "setups", "sim_setup")
+    info = load_setup_info(setup_path)
+    cp_sz = tuple(int(c) for c in info["classifier_crop_sz"])
+    pw, ph = info["prj_im_sz"]
+    im_prj = np.full((ph, pw, 3), float(info["prj_brightness"]), np.float32)
+    weights = join(REPO, "checkpoint")
+    card = Classifier("resnet18", weights, sort_results=False, device=dev)
+    cpu = Classifier("resnet18", weights, sort_results=False, device="cpu")
+    scene = imread(join(setup_path, "cam/raw/ref/img_0002.png"))[None]
+    true_idx = int(card(scene, cp_sz)[1].argmax())
+    cams, p_card = [], []
+
+    def fitness(pop):
+        cams.append(np.stack([sim.capture(perturb_image_np(x, im_prj, 41))
+                              for x in pop]))
+        p_card.append(card(cams[-1], cp_sz)[1])
+        return p_card[-1][:, true_idx]
+
+    bounds, npop = _bounds(ph, pw, 41, 1, 50)
+    BatchedDE(fitness, bounds, popsize=npop, maxiter=1, seed=0).solve()
+    p_cpu = [cpu(c, cp_sz)[1] for c in cams]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(p_card, p_cpu))
+    flips = int(((p_card[1][:, true_idx] < p_card[0][:, true_idx])
+                 != (p_cpu[1][:, true_idx] < p_cpu[0][:, true_idx])).sum())
+    batch = cams[0].copy()
+    batch[7] = batch[0]
+    raws = [card(batch[:1], cp_sz)[0][0], card(batch[[0, 0]], cp_sz)[0][1],
+            card(batch, cp_sz)[0][0], card(batch, cp_sz)[0][7]]
+    same = [bool(torch.equal(raws[0], r)) for r in raws[1:]] \
+        + [bool(torch.equal(raws[2], raws[3]))]
+    log(f"[onepixel] ResNet-18 untargeted initial population ({npop}) and "
+        f"its first generation, card vs CPU: max|p diff| {err:.3e} "
+        f"(tolerance 1e-4); trial < parent decisions that differ: {flips} "
+        f"of {npop}; one image's logits bitwise equal: alone vs in a pair, "
+        f"alone vs position 0 and alone vs position 7 of a batch of "
+        f"{npop}, position 0 vs 7 of that batch: {same}")
+    if not err <= 1e-4:
+        raise AssertionError(f"card and CPU probabilities differ by {err}")
+
+
+def run_child(args, what, timeout=900, tag="pipeline"):
     """Run ``python -m <args>`` from the checkout; echo its output; fail on
     a non-zero exit. Returns the output lines."""
     t0 = time.time()
@@ -915,8 +1083,8 @@ def run_child(args, what, timeout=900):
                           env={**os.environ, "PYTHONPATH": REPO})
     lines = (proc.stdout + proc.stderr).splitlines()
     for line in lines:
-        log(f"[pipeline]   | {line[:300]}")
-    log(f"[pipeline] {what}: exit code {proc.returncode} after "
+        log(f"[{tag}]   | {line[:300]}")
+    log(f"[{tag}] {what}: exit code {proc.returncode} after "
         f"{time.time() - t0:.3f} s wall")
     if proc.returncode != 0:
         raise AssertionError(f"{what} failed with exit code "
@@ -992,10 +1160,10 @@ def phase_pipeline(sim_root, dev):
                                read_key))
         log(f"[pipeline] validation images of {model} linked as {read_key}")
     lines = run_child(["spaa_tpu_torch.main", "--data-root", sim_root,
-                       "--setup-name", "sim_setup", "--steps", "6,7,8",
+                       "--setup-name", "sim_setup", "--steps", "6,7,8,9",
                        "--load-pretrained", "--train-iters",
                        str(COMPEN_ITERS)],
-                      "main --steps 6,7,8 --load-pretrained")
+                      "main --steps 6,7,8,9 --load-pretrained")
     step_s = {int(m.group(1)): float(m.group(2))
               for m in _grep(lines, r"^\[step (\d+)\] ([0-9.]+) s")}
     step8 = _grep(lines, r"^\[step 8\] train\+attack ([0-9.]+) s, replay "
@@ -1013,10 +1181,15 @@ def phase_pipeline(sim_root, dev):
         f"{step8.group(1)} s, replay of the 33 adversarial projections "
         f"{step8.group(2)} s, PerC-AL summarize {step8.group(3)} s "
         f"({phases[1]}; montage drain {drain[1]})")
+    step9 = _grep(lines, r"^\[step 9\] attack ([0-9.]+) s, summarize "
+                         r"([0-9.]+) s")[0]
+    log(f"[pipeline] step 9 (One-pixel DE through the simulator, 3 "
+        f"classifiers): {step_s[9]:.3f} s; attack {step9.group(1)} s, "
+        f"summarize {step9.group(2)} s ({phases[2]}; montage drain "
+        f"{drain[2]})")
     phase_json = join(dirname(sim_root), "phases.json")
     lines = run_child(["spaa_tpu_torch.reproduce_paper_results", "--sim",
-                       "--data-root", dirname(sim_root), "--attackers",
-                       "SPAA", "PerC-AL+CompenNet++", "--summarize-only",
+                       "--data-root", dirname(sim_root), "--summarize-only",
                        "--keep-existing-imgs", "--phase-json", phase_json],
                       "reproduce_paper_results --summarize-only")
     rec = json.load(open(phase_json))
@@ -1026,25 +1199,29 @@ def phase_pipeline(sim_root, dev):
         f"{rec['phases']}, {rec['stats_all_rows']} rows; summarize "
         f"({'; '.join(phases)}); peak device memory {peak[0]}")
 
-    n_rows = 36 + 3             # SPAA's grid, then PerC-AL's one config x 3
+    # SPAA's grid, then PerC-AL's one config and One-pixel's, x 3
+    n_rows = 36 + 3 + 3
     stats_all = read_csv(join(setups, "stats_all.txt"), sep="\t")
     check_stats(stats_all, n_rows)
     n_montages = sum(len([f for f in files if f.endswith(".png")])
                      for _, _, files in os.walk(join(setups, "sim_setup",
                                                      "ret")))
     pivot = read_xlsx(join(setups, "pivot_table_all.xlsx"))
-    attackers = [O.to_attacker_cfg_str(a)[0]
-                 for a in ("SPAA", "PerC-AL+CompenNet++")]
+    if rec["attackers"] != list(O.ATTACKER_NAMES):
+        raise AssertionError(f"the --sim default list is {rec['attackers']}")
+    attackers = [O.to_attacker_cfg_str(a)[0] for a in O.ATTACKER_NAMES]
     rows = {a: [r for r in stats_all.typed_rows() if r[1] == a]
             for a in attackers}
+    # One-pixel DE has no surrogate model, so no validation bundle
     valid = {a: {c: rows[a][0][COLUMNS.index(c)] for c in COLUMNS[11:17]}
-             for a in attackers}
+             for a in attackers[:2]}
     log(f"[pipeline] stats_all.txt {len(stats_all)} rows x "
         f"{len(stats_all.columns)} columns ({len(rows[attackers[0]])} SPAA, "
-        f"{len(rows[attackers[1]])} PerC-AL); {n_montages} montages; "
-        f"pivot_table_all.xlsx {len(pivot) - 1} rows x {len(pivot[0])} "
-        f"columns; validation bundles {valid}")
-    if [len(rows[a]) for a in attackers] != [36, 3]:
+        f"{len(rows[attackers[1]])} PerC-AL, {len(rows[attackers[2]])} "
+        f"One-pixel); {n_montages} montages; pivot_table_all.xlsx "
+        f"{len(pivot) - 1} rows x {len(pivot[0])} columns; validation "
+        f"bundles {valid}")
+    if [len(rows[a]) for a in attackers] != [36, 3, 3]:
         raise AssertionError(f"stats_all rows by attacker: "
                              f"{[len(rows[a]) for a in attackers]}")
     if not all(v > 0.0 for d in valid.values() for v in d.values()):
@@ -1117,6 +1294,7 @@ def main():
         phase_train(sim_root, dev)
         phase_compennet(sim_root, dev)
         phase_percal(sim_root, dev)
+        phase_onepixel(sim_root, dev)
         sweeps = [res] + [phase_attack(sim_root, dev, name)
                           for name in ("resnet18", "vgg16", "inception_v3")]
         phase_pipeline(sim_root, dev)

@@ -1,4 +1,4 @@
-"""Attack orchestration, SPAA and PerC-AL+CompenNet++ (counterpart of
+"""Attack orchestration of the three attackers (counterpart of
 ``spaa_tpu/attack/orchestrate.py``, reference
 ``projector_based_attack.py:24-209,342-359``).
 
@@ -8,7 +8,8 @@ Same attacker names, sweep grid and output layout
 runs as one batched attack of 12 x 11 = 132 images, and PerC-AL's one
 (loss, d_thr) config as one batch of 10 targeted + 1 untargeted samples;
 :func:`project_capture_real_attack` replays the results through ProCams.
-One-pixel DE is not ported yet (ROADMAP.md queue A item 6).
+One-pixel DE trains nothing: it projects and captures while it attacks
+(``cam/raw/adv/...``), 10 targeted attacks and 1 untargeted one.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spaa_tpu_torch.attack.one_pixel import ProjectorOnePixelAttacker
 from spaa_tpu_torch.attack.perc_al import PerC_AL
 from spaa_tpu_torch.attack.spaa import (SpaaConfig, spaa_attack_batched,
                                         stealth_weights)
@@ -42,7 +44,6 @@ from spaa_tpu_torch.utils.io import imread, save_imgs
 from spaa_tpu_torch.utils.seed import reset_rng_seeds
 
 ATTACKER_NAMES = ["SPAA", "PerC-AL+CompenNet++", "One-pixel_DE"]
-_NOT_PORTED = {"One-pixel_DE": "item 6 (One-pixel DE)"}
 
 
 def get_attacker_cfg(attacker_name: str, data_root: str, setup_list,
@@ -296,12 +297,52 @@ def _run_percal_sweep(cfg, trained, classifier, cam_scene, target_idx,
     return out
 
 
-def run_projector_based_attack(cfg, weights_dir: Optional[str] = None,
-                               device=None):
-    """Sweep entry point (ref ``projector_based_attack.py:24-148``), SPAA
-    and PerC-AL+CompenNet++.
+def _run_one_pixel(cfg, one_pixel_de, classifier, im_prj_org, target_idx,
+                   true_idx, true_label, setup_path, attacker_cfg_str,
+                   classifier_name, n):
+    """The untargeted attack, then the n targeted ones (ref ``:110-134``);
+    the targeted images are saved as 1..n, the untargeted one as n+1, in
+    ``prj/adv`` and ``cam/raw/adv``. The ``cfg.op_*`` entries override the
+    reference's DE budget (block 41 pixels, 4 generations, population 50
+    untargeted and 10 targeted). Returns the attacks' result tables, each
+    config's untargeted one first."""
+    tables = []
+    pixel_size = int(cfg.get("op_pixel_size", 41))
+    maxiter = int(cfg.get("op_maxiter", 4))
+    pop_u = int(cfg.get("op_popsize_untargeted", 50))
+    pop_t = int(cfg.get("op_popsize_targeted", 10))
+    for stealth_loss in cfg.stealth_losses:
+        for d_thr in cfg.d_threshes:
+            folder = join(attacker_cfg_str, stealth_loss, str(d_thr),
+                          classifier_name)
+            cam_raw_adv_path = join(setup_path, "cam/raw/adv", folder)
+            prj_adv_path = join(setup_path, "prj/adv", folder)
+            table, prj_u, cam_u = one_pixel_de(
+                im_prj_org, classifier, False, target_idx=true_idx,
+                pixel_count=1, pixel_size=pixel_size, maxiter=maxiter,
+                popsize=pop_u, verbose=True, true_label=true_label)
+            tables.append(table)
+            for i in range(n):
+                table, prj_t, cam_t = one_pixel_de(
+                    im_prj_org, classifier, True, target_idx=target_idx[i],
+                    pixel_count=1, pixel_size=pixel_size, maxiter=maxiter,
+                    popsize=pop_t, verbose=True, true_label=true_label)
+                tables.append(table)
+                save_imgs(cam_t[None], cam_raw_adv_path, idx=i)
+                save_imgs(prj_t[None], prj_adv_path, idx=i)
+            save_imgs(cam_u[None], cam_raw_adv_path, idx=n)
+            save_imgs(prj_u[None], prj_adv_path, idx=n)
+    return tables
 
-    ``weights_dir``: where to look for classifier ``.pth`` files. The
+
+def run_projector_based_attack(cfg, procams=None,
+                               weights_dir: Optional[str] = None,
+                               device=None):
+    """Sweep entry point (ref ``projector_based_attack.py:24-148``).
+
+    ``procams``: the project-and-capture object One-pixel DE attacks
+    through (``utils.sim_procams.SimProCams``); the other attackers ignore
+    it. ``weights_dir``: where to look for classifier ``.pth`` files. The
     attacker's model (PCNet for SPAA, CompenNet++ for PerC-AL) trains, or
     with ``cfg.load_pretrained`` and a checkpoint under its config-string
     key loads, through ``train.pipeline``; ``cfg.max_iters`` overrides its
@@ -310,10 +351,9 @@ def run_projector_based_attack(cfg, weights_dir: Optional[str] = None,
     attacker_name = cfg.attacker_name
     if attacker_name not in ATTACKER_NAMES:
         raise ValueError(f"{attacker_name} not supported!")
-    if attacker_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{attacker_name} is not ported yet (ROADMAP.md queue A "
-            f"{_NOT_PORTED[attacker_name]})")
+    assert (attacker_name != "One-pixel_DE") or (len(cfg.setup_list) == 1), \
+        f"{attacker_name} does not support attacking multiple setups " \
+        "simultaneously!"
     reset_rng_seeds(0)
 
     for setup_name in cfg.setup_list:
@@ -331,20 +371,33 @@ def run_projector_based_attack(cfg, weights_dir: Optional[str] = None,
         target_labels = load_imagenet_labels(
             join(cfg.data_root, "imagenet10_clsidx_to_labels.txt"))
 
-        model_cfg = get_model_train_cfg(
-            None, cfg.data_root, [setup_name],
-            load_pretrained=cfg.load_pretrained, plot_on=cfg.plot_on)
-        if "max_iters" in cfg:
-            model_cfg.max_iters = cfg.max_iters
-        if attacker_name == "SPAA":
-            model_cfg.model_list = ["PCNet"]
-            trained, _, model_cfg = train_eval_pcnet(model_cfg, dev)
+        dl_based = attacker_name != "One-pixel_DE"
+        if dl_based:
+            model_cfg = get_model_train_cfg(
+                None, cfg.data_root, [setup_name],
+                load_pretrained=cfg.load_pretrained, plot_on=cfg.plot_on)
+            if "max_iters" in cfg:
+                model_cfg.max_iters = cfg.max_iters
+            if attacker_name == "SPAA":
+                model_cfg.model_list = ["PCNet"]
+                trained, _, model_cfg = train_eval_pcnet(model_cfg, dev)
+            else:
+                model_cfg.model_list = ["CompenNet++"]
+                if "init_max_iters" in cfg:
+                    model_cfg.init_max_iters = cfg.init_max_iters
+                trained, _, model_cfg = train_eval_compennet_pp(model_cfg,
+                                                                dev)
+            cfg.model_cfg = dict(model_cfg)
         else:
-            model_cfg.model_list = ["CompenNet++"]
-            if "init_max_iters" in cfg:
-                model_cfg.init_max_iters = cfg.init_max_iters
-            trained, _, model_cfg = train_eval_compennet_pp(model_cfg, dev)
-        cfg.model_cfg = dict(model_cfg)
+            assert procams is not None, \
+                "One-pixel_DE needs a procams (hardware or simulator)"
+            one_pixel_de = ProjectorOnePixelAttacker(imagenet_labels,
+                                                     setup_info, procams)
+            ph, pw = setup_info["prj_im_sz"][1], setup_info["prj_im_sz"][0]
+            im_prj_org = np.full((ph, pw, 3),
+                                 float(setup_info["prj_brightness"]),
+                                 np.float32)
+            one_pixel_de.im_cam_org = cam_scene[0].cpu().numpy()
         attacker_cfg_str = to_attacker_cfg_str(attacker_name)[0]
 
         n = 10  # 10 targeted + 1 untargeted (ref :79-81)
@@ -353,25 +406,31 @@ def run_projector_based_attack(cfg, weights_dir: Optional[str] = None,
 
         for classifier_name in cfg.classifier_names:
             classifier = Classifier(classifier_name, weights_dir,
-                                    sort_results=True, device=dev)
+                                    sort_results=dl_based, device=dev)
             _, p, pred_idx = classifier(cam_scene, cp_sz)
-            true_idx = int(pred_idx[0, 0])
+            true_idx = int(pred_idx[0, 0]) if dl_based else int(p.argmax())
+            true_label = imagenet_labels[true_idx]
             print(f"\n---- [{attacker_name}] attacking [{classifier_name}], "
-                  f"original prediction: ({imagenet_labels[true_idx]}, "
+                  f"original prediction: ({true_label}, "
                   f"p={p.max():.2f}) ----")
             if attacker_name == "SPAA":
                 _run_spaa_sweep(cfg, trained, classifier, cam_scene,
                                 target_idx, true_idx, setup_info, setup_path,
                                 attacker_cfg_str, classifier_name)
-            else:
+            elif attacker_name == "PerC-AL+CompenNet++":
                 _run_percal_sweep(cfg, trained, classifier, cam_scene,
                                   target_idx, true_idx, setup_info,
                                   setup_path, attacker_cfg_str,
                                   classifier_name, imagenet_labels)
+            else:
+                _run_one_pixel(cfg, one_pixel_de, classifier, im_prj_org,
+                               target_idx, true_idx, true_label, setup_path,
+                               attacker_cfg_str, classifier_name, n)
 
-        print(f"\nThe next step is to project and capture [{attacker_name}] "
-              f"generated adversarial projections in "
-              f"{join(setup_path, 'prj/adv', attacker_cfg_str)}")
+        if dl_based:
+            print(f"\nThe next step is to project and capture "
+                  f"[{attacker_name}] generated adversarial projections in "
+                  f"{join(setup_path, 'prj/adv', attacker_cfg_str)}")
     return cfg
 
 

@@ -12,16 +12,18 @@ Steps (reference ``main.py`` cell numbers in parens):
   7 summarize        SPAA per-setup stats + montages               (5.2)
   8 percal           PerC-AL+CompenNet++: train CompenNet++, attack,
                      replay, summarize                             (6.1-6.2)
-  9 one-pixel        One-pixel_DE (not ported yet)                 (7.1)
-  10 summarize-all   gather + pivot table, paper Table 1           (8)
+  9 one-pixel        One-pixel_DE: attack through the simulator's
+                     captures, then summarize                      (7.1)
+  10 summarize-all   gather + pivot table of the three attackers,
+                     paper Table 1                                 (8)
 
 Runs on ``cuda`` unless ``--device cpu``. Real projector/camera hardware
-(``--hardware``) and step 9 are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+(``--hardware``) is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP.md item.
 
 Usage:
   python -m spaa_tpu_torch.main --data-root data --setup-name sim_test \\
-      --steps 1-8,10
+      --steps 1-10
 """
 
 from __future__ import annotations
@@ -30,10 +32,6 @@ import argparse
 import os
 import time
 from os.path import join
-
-NOT_PORTED_STEPS = {9: "item 6 (One-pixel DE)"}
-# the attackers step 10 gathers: those the port has (One-pixel DE: item 6)
-GATHERED_ATTACKERS = ("SPAA", "PerC-AL+CompenNet++")
 
 
 def _parse_steps(spec: str):
@@ -68,6 +66,9 @@ def parse_args(argv=None):
                     help="debug/CI: restrict the classifier zoo")
     ap.add_argument("--stealth-losses", nargs="*", default=None)
     ap.add_argument("--d-threshes", nargs="*", type=int, default=None)
+    ap.add_argument("--op-budget", nargs=4, type=int, default=None,
+                    metavar=("PIXEL_SIZE", "MAXITER", "POP_U", "POP_T"),
+                    help="debug/CI: One-pixel_DE budget overrides")
     ap.add_argument("--sim-size", nargs=4, type=int, default=None,
                     metavar=("PRJ_W", "PRJ_H", "CAM_W", "CAM_H"),
                     help="debug/CI: shrink the simulator image sizes")
@@ -87,11 +88,6 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             "real ProCams hardware is not ported yet (ROADMAP.md queue A: "
             "HardwareProCams and the interactive capture helpers)")
-    for s in steps:
-        if s in NOT_PORTED_STEPS:
-            raise NotImplementedError(
-                f"step {s} is not ported yet (ROADMAP.md queue A "
-                f"{NOT_PORTED_STEPS[s]})")
 
     from spaa_tpu_torch.utils.config import (DictConfig, load_flat_yaml,
                                              save_flat_yaml)
@@ -120,6 +116,9 @@ def main(argv=None) -> None:
         if args.train_iters:
             cfg.max_iters = int(args.train_iters)
             cfg.init_max_iters = int(args.train_iters)
+        if args.op_budget:
+            (cfg.op_pixel_size, cfg.op_maxiter, cfg.op_popsize_untargeted,
+             cfg.op_popsize_targeted) = (int(v) for v in args.op_budget)
         return cfg
 
     summarize_kw = dict(
@@ -277,17 +276,30 @@ def main(argv=None) -> None:
               f"s, summarize {time.time() - t2:.3f} s", flush=True)
         done(8, t0)
 
-    # ---- 10. gather + pivot table, paper Table 1 (ref main.py:214-225):
-    # the attackers the port has, those with a stats table of this setup
+    # ---- 9. One-pixel_DE: no training; its adversarial projections are
+    # captured while it attacks (ref main.py:198-212, cell 7.1)
+    if 9 in steps:
+        t0 = step(9, "one-pixel")
+        cfg = _apply_attack_overrides(get_attacker_cfg(
+            "One-pixel_DE", data_root, [setup_name]))
+        run_projector_based_attack(cfg, procams=procams,
+                                   weights_dir=args.weights_dir, device=dev)
+        t1 = time.time()
+        df = summarize_single_attacker(
+            "One-pixel_DE", data_root, [setup_name],
+            classifier_names=summarize_kw["classifier_names"],
+            weights_dir=args.weights_dir, device=dev)
+        print(df.head())
+        print(f"[step 9] attack {t1 - t0:.3f} s, summarize "
+              f"{time.time() - t1:.3f} s", flush=True)
+        done(9, t0)
+
+    # ---- 10. gather + pivot table, paper Table 1 (ref main.py:214-225)
     if 10 in steps:
         t0 = step(10, "summarize-all")
-        from spaa_tpu_torch.attack import to_attacker_cfg_str
-        gathered = [a for a in GATHERED_ATTACKERS if os.path.exists(join(
-            setup_path, "ret", to_attacker_cfg_str(a)[0], "stats.txt"))]
-        print(f"Gathering {gathered} (no stats table for "
-              f"{sorted(set(GATHERED_ATTACKERS) - set(gathered))})")
         _, pivot_table = summarize_all_attackers(
-            gathered, data_root, [setup_name], recreate_stats_and_imgs=False,
+            ["SPAA", "PerC-AL+CompenNet++", "One-pixel_DE"], data_root,
+            [setup_name], recreate_stats_and_imgs=False,
             weights_dir=args.weights_dir, device=dev)
         print(f"\n------ Pivot table of 1 setup in {data_root} ------")
         print(pivot_table.to_string())

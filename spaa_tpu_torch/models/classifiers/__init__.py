@@ -66,6 +66,24 @@ def build_classifier(model_name: str, weights_dir: Optional[str] = None,
     return net, source
 
 
+def _mean_std(x: torch.Tensor):
+    return (torch.as_tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device),
+            torch.as_tensor(IMAGENET_STD, dtype=x.dtype, device=x.device))
+
+
+def normalize_imagenet(im: torch.Tensor) -> torch.Tensor:
+    """ImageNet standardisation, NHWC."""
+    mean, std = _mean_std(im)
+    return (im - mean) / std
+
+
+def unnormalize_imagenet(im: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`normalize_imagenet` (ref ``UnNormalize``,
+    ``classifier.py:79-94``)."""
+    mean, std = _mean_std(im)
+    return im * std + mean
+
+
 def make_logits_fn(net: torch.nn.Module, crop_sz=(240, 240)) -> Callable:
     """``logits_fn(im)``: the differentiable classify pipeline on NHWC
     [0, 1] images (ref ``classifier.py:55-60``): centre crop, 'area'
@@ -77,8 +95,7 @@ def make_logits_fn(net: torch.nn.Module, crop_sz=(240, 240)) -> Callable:
             im = im[None]
         x = center_crop_nchw(im.permute(0, 3, 1, 2), crop_sz)
         x = resize_area_nchw(x, input_sz)
-        mean = torch.as_tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-        std = torch.as_tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+        mean, std = _mean_std(x)
         x = (x - mean[:, None, None]) / std[:, None, None]
         return net(x)
 

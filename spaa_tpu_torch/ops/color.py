@@ -64,13 +64,21 @@ def _linear(c: torch.Tensor) -> torch.Tensor:
     return 100.0 * torch.where(c > 0.0405, _SrgbGamma.apply(c), c / 12.92)
 
 
-def rgb2lab_diff(rgb: torch.Tensor) -> torch.Tensor:
-    """Differentiable sRGB [..., 3] in [0, 1] -> CIELAB [..., 3]."""
+def _rgb2xyz_channels(rgb: torch.Tensor):
     rl, gl, bl = _linear(rgb[..., 0]), _linear(rgb[..., 1]), _linear(rgb[..., 2])
     m = _RGB2XYZ.astype(np.float64)
-    x = float(m[0, 0]) * rl + float(m[0, 1]) * gl + float(m[0, 2]) * bl
-    y = float(m[1, 0]) * rl + float(m[1, 1]) * gl + float(m[1, 2]) * bl
-    z = float(m[2, 0]) * rl + float(m[2, 1]) * gl + float(m[2, 2]) * bl
+    return tuple(float(m[i, 0]) * rl + float(m[i, 1]) * gl
+                 + float(m[i, 2]) * bl for i in range(3))
+
+
+def rgb2xyz(rgb: torch.Tensor) -> torch.Tensor:
+    """sRGB [..., 3] in [0, 1] -> XYZ scaled by 100 (ref ``:12-24``)."""
+    return torch.stack(_rgb2xyz_channels(rgb), dim=-1)
+
+
+def rgb2lab_diff(rgb: torch.Tensor) -> torch.Tensor:
+    """Differentiable sRGB [..., 3] in [0, 1] -> CIELAB [..., 3]."""
+    x, y, z = _rgb2xyz_channels(rgb)
     fx, fy, fz = _xyz_lab_f(x / _XN), _xyz_lab_f(y / _YN), _xyz_lab_f(z / _ZN)
     return torch.stack([116.0 * fy - 16.0, 500.0 * (fx - fy),
                         200.0 * (fy - fz)], dim=-1)

@@ -99,3 +99,9 @@ def linf_norm(x, y) -> float:
 @torch.no_grad()
 def deltaE(x, y) -> float:
     return float(_deltaE(_t(x), _t(y)))
+
+
+def l2_norm_to_mse(x: torch.Tensor, num_chan: int) -> torch.Tensor:
+    """Ref ``utils.py:489-491``."""
+    x = torch.as_tensor(x)
+    return torch.mean(x ** 2) / num_chan

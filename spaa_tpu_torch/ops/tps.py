@@ -60,3 +60,35 @@ def tps_grid(theta: torch.Tensor, ctrl: torch.Tensor, size) -> torch.Tensor:
         n, h, w = size
     g = _homogeneous_grid(int(n), int(h), int(w), theta.dtype, theta.device)
     return (g[..., 1:] + tps(theta, ctrl, g)) * 2.0 - 1.0
+
+
+def tps_d(theta: torch.Tensor, ctrl: torch.Tensor,
+          grid: torch.Tensor) -> torch.Tensor:
+    """1-D output TPS (depth approximation): theta [N, T+3 | T+2, 1] ->
+    z [N, H, W, 1] (ref ``pytorch_tps.py:109-157``): :func:`tps` with one
+    output channel."""
+    return tps(theta, ctrl, grid)
+
+
+def tps_depth(theta: torch.Tensor, ctrl: torch.Tensor,
+              size) -> torch.Tensor:
+    """TPS depth map [N, H, W, 1] on the uniform homogeneous grid; size
+    (N, C, H, W) or (N, H, W) (ref ``pytorch_tps.py:160-186``)."""
+    if len(size) == 4:
+        n, _, h, w = size
+    else:
+        n, h, w = size
+    g = _homogeneous_grid(int(n), int(h), int(w), theta.dtype, theta.device)
+    return tps_d(theta, ctrl, g)
+
+
+def tps_sparse(theta: torch.Tensor, ctrl: torch.Tensor,
+               xy: torch.Tensor) -> torch.Tensor:
+    """The TPS warp of sparse (x, y) points [N, M, 2] (or [M, 2]): each
+    point plus its displacement (ref ``pytorch_tps.py:188-198``)."""
+    if xy.ndim == 2:
+        xy = xy.expand(theta.shape[0], *xy.shape)
+    n, m = xy.shape[:2]
+    grid = torch.cat([torch.ones_like(xy[..., :1]), xy], dim=-1)
+    z = tps(theta, ctrl, grid.reshape(n, m, 1, 3))
+    return xy + z.reshape(n, m, 2)

@@ -7,15 +7,13 @@ projections through ProCams, and summarize into per-setup stats tables
 and the cross-setup pivot table (paper Table 1 layout).
 
 Runs on ``cuda`` unless ``--device cpu``. The default attacker list is the
-JAX script's: SPAA and PerC-AL+CompenNet++, and One-pixel DE with
-``--sim``, which is not ported yet and raises before any work starts (pass
-``--attackers SPAA PerC-AL+CompenNet++``; ROADMAP.md queue A item 6).
+JAX script's: SPAA and PerC-AL+CompenNet++, and with ``--sim`` One-pixel
+DE, which attacks one setup at a time through that setup's own simulator.
 ``--multi-setup-train`` / ``--multi-setup-attack`` are not ported yet
-either (item 7).
+(ROADMAP.md queue A item 7) and raise before any work starts.
 
 Usage:
-  python -m spaa_tpu_torch.reproduce_paper_results --sim \\
-      --attackers SPAA PerC-AL+CompenNet++
+  python -m spaa_tpu_torch.reproduce_paper_results --sim
   python -m spaa_tpu_torch.reproduce_paper_results --data-root <root> \\
       --summarize-only
 """
@@ -35,7 +33,6 @@ BENCHMARK_SETUPS = [
     "bucket", "coffee_mug", "lotion", "paper_towel", "pillow",
     "remote_control", "soccer_ball", "teddy",
 ]
-NOT_PORTED_ATTACKERS = {"One-pixel_DE": "item 6 (One-pixel DE)"}
 
 
 class PhaseLog:
@@ -114,13 +111,6 @@ def main(argv=None) -> None:
         attackers.append("One-pixel_DE")  # the simulator provides the loop
     if args.attackers:
         attackers = [a for a in attackers if a in args.attackers]
-    missing = [a for a in attackers if a in NOT_PORTED_ATTACKERS]
-    if missing:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(
-                f"{a} (ROADMAP.md queue A {NOT_PORTED_ATTACKERS[a]})"
-                for a in missing)
-            + "; pass --attackers SPAA PerC-AL+CompenNet++")
     plog = PhaseLog(args.phase_json)
 
     from spaa_tpu_torch.attack import (get_attacker_cfg,
@@ -167,7 +157,18 @@ def main(argv=None) -> None:
                 f"No setups under {setups_dir}. Unpack the SPAA benchmark "
                 "dataset there, or run with --sim for a synthetic benchmark.")
 
+    def _procams_for(s):
+        return sim_procams.get(s, procams)
+
     for attacker_name in [] if args.summarize_only else attackers:
+        if attacker_name == "One-pixel_DE":
+            for s in setup_list:   # one setup at a time (hardware loop)
+                c1 = get_attacker_cfg(attacker_name, data_root, [s])
+                with plog.phase(f"attack/One-pixel_DE/{s}"):
+                    run_projector_based_attack(
+                        c1, procams=_procams_for(s),
+                        weights_dir=args.weights_dir, device=dev)
+            continue
         cfg = get_attacker_cfg(attacker_name, data_root, setup_list,
                                load_pretrained=args.load_pretrained)
         with plog.phase(f"attack/{attacker_name}"):
@@ -177,8 +178,7 @@ def main(argv=None) -> None:
             with plog.phase(f"replay/{attacker_name}"):
                 for s in setup_list:
                     c1 = get_attacker_cfg(attacker_name, data_root, [s])
-                    project_capture_real_attack(c1,
-                                                sim_procams.get(s, procams))
+                    project_capture_real_attack(c1, _procams_for(s))
 
     with plog.phase("summarize_all"):
         table, pivot = summarize_all_attackers(

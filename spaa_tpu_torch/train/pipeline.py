@@ -35,11 +35,11 @@ from spaa_tpu_torch.train.train import (compute_loss, get_model_train_cfg,
                                         make_evaluator, make_pcnet_optimizer,
                                         sample_batch_indices, train_model)
 from spaa_tpu_torch.utils import log as L
+from spaa_tpu_torch.utils import vis
 from spaa_tpu_torch.utils.device import resolve_device
 from spaa_tpu_torch.utils.io import imread_dir, save_imgs
 from spaa_tpu_torch.utils.seed import reset_rng_seeds
 from spaa_tpu_torch.utils.threefry import prng_key
-from spaa_tpu_torch.utils.vis import CurveLogger
 from spaa_tpu_torch.weights import (compennet_params, compennet_pp_params,
                                     pcnet_params, pcnet_state_dict)
 
@@ -68,6 +68,18 @@ class TrainedModel:
         """Bake PCNet's inference cache (ref ``simplify`` methods)."""
         with torch.no_grad():
             return self.model.simplify_cache(self.cam_scene)
+
+
+def _make_curve_logger(cfg, data_root: str) -> vis.CurveLogger:
+    """The training curves as JSONL, and live visdom lines when
+    ``cfg.plot_on`` is set and a server answers (ref
+    ``train_network.py:162-173``, made optional)."""
+    if cfg.get("plot_on", False):
+        vis.init_visdom()
+    return vis.CurveLogger(join(
+        data_root, "../log",
+        f"curves_{cfg.get('model_name', 'model')}_"
+        f"{cfg.get('setup_name', 'setup')}.jsonl"))
 
 
 def _new_pcnet(model_name: str, cam_hw) -> PCNet:
@@ -199,10 +211,7 @@ def train_eval_pcnet(cfg_default, device=None):
                             dict(inputs=as_uint8_wire(data["prj_train"][:n]),
                                  targets=as_uint8_wire(data["cam_train"][:n])),
                             idx, cfg, dev, valid_fn=evaluator,
-                            curve_logger=CurveLogger(join(
-                                data_root, "../log",
-                                f"curves_{cfg.model_name}_{cfg.setup_name}"
-                                ".jsonl")),
+                            curve_logger=_make_curve_logger(cfg, data_root),
                             resume_path=L.resume_path(
                                 join(data_root, "../checkpoint"),
                                 L.opt_to_string(cfg)))
@@ -397,10 +406,7 @@ def train_eval_compennet_pp(cfg_default, device=None):
                             dict(inputs=as_uint8_wire(data["cam_train"][:n]),
                                  targets=as_uint8_wire(data["prj_train"][:n])),
                             idx, cfg, dev, valid_fn=evaluator,
-                            curve_logger=CurveLogger(join(
-                                data_root, "../log",
-                                f"curves_{cfg.model_name}_{cfg.setup_name}"
-                                ".jsonl")),
+                            curve_logger=_make_curve_logger(cfg, data_root),
                             resume_path=L.resume_path(
                                 join(data_root, "../checkpoint"),
                                 L.opt_to_string(cfg)))

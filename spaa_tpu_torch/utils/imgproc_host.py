@@ -13,7 +13,8 @@
   - ``checkerboard``, ``create_gray_pattern``, ``create_number_pattern``:
     calibration and sync-test patterns.
   - montage helpers for the result summaries: ``make_grid``,
-    ``resize_area_np``, ``to_pseudocolor`` (OpenCV's JET table, committed),
+    ``resize_area_np``, ``resize_linear_np`` (cv2's default bilinear
+    ``resize``), ``to_pseudocolor`` (OpenCV's JET table, committed),
     ``insert_texts`` (Pillow's rendering of ``spaa_tpu``'s label font,
     from a committed glyph atlas).
 """
@@ -539,6 +540,37 @@ def insert_texts(im_hwc: np.ndarray, items, font_sz: int = 14,
 
 
 # --------------------------------------------------------------- montage
+def _linear_taps(n_in: int, n_out: int):
+    """Source indices (two per output, clamped) and float32 weights of
+    cv2's bilinear resize along one axis: half-pixel centres and the
+    fraction in float64, the scale as ``1 / (n_out / n_in)``, a source
+    position before the first pixel or at or after the last one taking
+    that pixel alone."""
+    fx = (np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    sx = np.floor(fx).astype(np.int64)
+    fx = fx - sx
+    fx[(sx < 0) | (sx >= n_in - 1)] = 0.0
+    sx = np.clip(sx, 0, n_in - 1)
+    return (sx, np.minimum(sx + 1, n_in - 1), (1.0 - fx).astype(np.float32),
+            fx.astype(np.float32))
+
+
+def resize_linear_np(src: np.ndarray, dsize) -> np.ndarray:
+    """cv2.resize(src, dsize=(w, h)) with its default ``INTER_LINEAR`` of
+    an HxW[xC] float image: rows first, then columns, in float32."""
+    w, h = int(dsize[0]), int(dsize[1])
+    s = np.asarray(src, np.float32)
+    if s.shape[:2] == (h, w):
+        return s.copy()
+    x0, x1, xa, xb = _linear_taps(s.shape[1], w)
+    y0, y1, ya, yb = _linear_taps(s.shape[0], h)
+    tail = (None,) * (s.ndim - 2)
+    col = (None, slice(None)) + tail
+    t = s[:, x0] * xa[col] + s[:, x1] * xb[col]
+    row = (slice(None), None) + tail
+    return t[y0] * ya[row] + t[y1] * yb[row]
+
+
 def resize_area_np(x: np.ndarray, size) -> np.ndarray:
     """Host numpy twin of :func:`spaa_tpu_torch.ops.image.resize_area`
     (the same averaging matrices, two BLAS products; ref

@@ -23,7 +23,8 @@ from os.path import abspath, join
 import numpy as np
 import torch
 
-from spaa_tpu_torch.utils.table import Table
+from spaa_tpu_torch.utils.config import save_flat_yaml
+from spaa_tpu_torch.utils.table import Table, read_csv
 from spaa_tpu_torch.utils.xlsx import to_excel
 
 
@@ -303,6 +304,23 @@ def write_log_file(table: Table, log_txt=None, log_xls=None) -> None:
     if log_xls is not None:
         to_excel(table, log_xls, index=False)
     print(f"Log files are saved to {log_txt} and {log_xls}")
+
+
+def read_log(filename: str) -> Table:
+    """A comma-separated metrics log (ref ``utils.py:707-714``)."""
+    return read_csv(filename, sep=",")
+
+
+def log_to_table(filename: str) -> Table:
+    """An old whitespace-separated (CompenNet-era) log file (ref
+    ``utils.py:697-704``)."""
+    return read_csv(filename, sep=r"\s+")
+
+
+def export_setup_info(setup_path: str, cfg) -> None:
+    """Write a setup's ``setup_info.yml`` (ref ``utils.py:656-670``)."""
+    os.makedirs(setup_path, exist_ok=True)
+    save_flat_yaml(cfg, join(setup_path, "setup_info.yml"))
 
 
 def print_sys_info() -> None:

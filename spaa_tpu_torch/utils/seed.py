@@ -19,3 +19,12 @@ def reset_rng_seeds(seed: int) -> np.ndarray:
     np.random.seed(seed)
     torch.manual_seed(seed)
     return prng_key(seed)
+
+
+def set_reproducibility(reproducible: bool = False) -> None:
+    """The reference's determinism switch (``utils.py:79-81``): PyTorch's
+    deterministic kernels and cuDNN's deterministic algorithms on or off.
+    ``cudnn.benchmark`` is left as it is. On the card cuBLAS also needs
+    ``CUBLAS_WORKSPACE_CONFIG`` set before it starts."""
+    torch.use_deterministic_algorithms(reproducible)
+    torch.backends.cudnn.deterministic = reproducible

@@ -294,9 +294,13 @@ def _parse_field(text: str):
 def read_csv(path: str, sep: str = ",") -> Table:
     """``pd.read_csv(path, sep=sep)`` for a file with a header row: each
     column's kind inferred from all its fields (int, then float, then bool,
-    else text with the original strings)."""
+    else text with the original strings). ``sep=r"\\s+"`` splits on runs
+    of whitespace, skipping blank lines, as pandas does."""
     with open(path, newline="") as f:
-        records = list(csv.reader(f, delimiter=sep))
+        if sep == r"\s+":
+            records = [line.split() for line in f if line.strip()]
+        else:
+            records = list(csv.reader(f, delimiter=sep))
     if not records:
         raise ValueError(f"{path} is empty")
     cols, body = records[0], records[1:]

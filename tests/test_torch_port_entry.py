@@ -1,22 +1,26 @@
 """Port entry points: ``spaa_tpu_torch.main`` and
 ``spaa_tpu_torch.reproduce_paper_results`` on the CPU at tiny sizes.
 
-- ``main --steps 1-7,10`` (sim 32x32 projector, 32x24 camera, 8 training
-  pairs, 3 PCNet iterations, 2 attack iterations, ResNet-18, one loss and
-  one threshold) writes the reference layout and a 71-column table, and
-  ``spaa_tpu``'s ``summarize_single_attacker`` on the port's own PNGs
-  gives the same table (both read one ``.pth`` made from ``spaa_tpu``'s
-  seeded parameters);
+One module fixture runs ``main --steps 1-8`` (sim 32x32 projector, 32x24
+camera, 8 training pairs, 3 PCNet / CompenNet++ iterations, 2 attack
+iterations, ResNet-18, SPAA with one loss and one threshold, then
+PerC-AL+CompenNet++); both packages read one ``.pth`` made from
+``spaa_tpu``'s seeded parameters. Then:
+
+- SPAA's reference layout and 71-column table, equal to what
+  ``spaa_tpu``'s ``summarize_single_attacker`` makes of the port's PNGs;
+  ``main --steps 1,2,9,10 --op-budget 21 1 8 6`` adds One-pixel DE and the
+  three-attacker ``stats_all`` and pivot, and ``reproduce_paper_results
+  --sim --summarize-only`` runs the default list of all three attackers;
 - ``reproduce_paper_results --sim --summarize-only`` on a synthetic
   ``sim_benchmark`` tree writes ``stats_all``, the pivot and the phase
   JSON;
-- ``main --steps 1,2,8,10`` (PerC-AL+CompenNet++ at the same sizes) writes
-  its layout, a 71-column row and ``stats_all``; then
-  ``reproduce_paper_results --summarize-only`` runs the default attacker
-  list (SPAA and PerC-AL);
-- what is not ported (One-pixel DE, the ``--multi-setup-*`` flags, the
-  hardware) raises ``NotImplementedError`` before any work, and both
-  entry points default to ``cuda``.
+- PerC-AL+CompenNet++'s layout, checkpoints and 71-column row; then
+  ``reproduce_paper_results --summarize-only`` without ``--sim`` runs its
+  default list (SPAA and PerC-AL);
+- what is not ported (the ``--multi-setup-*`` flags, the hardware) raises
+  ``NotImplementedError`` before any work, and both entry points default
+  to ``cuda``.
 """
 
 import glob
@@ -42,6 +46,10 @@ from spaa_tpu_torch.weights import resnet18_state_dict
 from test_summarize import _write_setup
 
 CFG = to_attacker_cfg_str("SPAA")[0]
+PCFG = to_attacker_cfg_str("PerC-AL+CompenNet++")[0]
+SIM_ARGS = ["--setup-name", "sim_setup", "--device", "cpu", "--sim-size",
+            "32", "32", "32", "24", "--num-train", "8", "--classifiers",
+            "resnet18"]
 
 
 def _weights(tmp_path):
@@ -52,16 +60,23 @@ def _weights(tmp_path):
     return str(w)
 
 
-def test_main_steps_1_to_7_and_10_on_cpu(tmp_path):
-    weights = _weights(tmp_path)
-    data = str(tmp_path / "data")
-    TM.main(["--data-root", data, "--setup-name", "vtest", "--steps",
-             "1-7,10", "--device", "cpu", "--sim-size", "32", "32", "32",
-             "24", "--num-train", "8", "--train-iters", "3",
-             "--attack-iters", "2", "--classifiers", "resnet18",
-             "--stealth-losses", "caml2", "--d-threshes", "5",
-             "--weights-dir", weights])
-    setup = join(data, "setups", "vtest")
+@pytest.fixture(scope="module")
+def main_run(tmp_path_factory):
+    """``main --steps 1-8`` in ``<tmp>/sim_benchmark``: SPAA, then
+    PerC-AL+CompenNet++."""
+    tmp = tmp_path_factory.mktemp("entry")
+    weights = _weights(tmp)
+    data = str(tmp / "sim_benchmark")
+    TM.main(["--data-root", data, "--steps", "1-8"] + SIM_ARGS
+            + ["--train-iters", "3", "--attack-iters", "2",
+               "--stealth-losses", "caml2", "--d-threshes", "5",
+               "--weights-dir", weights])
+    return tmp, data, weights
+
+
+def test_main_steps_1_to_7_and_10_on_cpu(main_run, tmp_path):
+    tmp, data, weights = main_run
+    setup = join(data, "setups", "sim_setup")
     folder = join(CFG, "caml2", "5", "resnet18")
     for sub in ("prj/adv", "cam/infer/adv", "cam/raw/adv", "ret"):
         assert len(glob.glob(join(setup, sub, folder, "img_*.png"))) == 11
@@ -69,24 +84,19 @@ def test_main_steps_1_to_7_and_10_on_cpu(tmp_path):
         == 10
     for f in ("stats.txt", "stats.xlsx"):
         assert os.path.exists(join(setup, "ret", CFG, f))
-    for f in ("stats_all.txt", "stats_all.xlsx", "pivot_table_all.xlsx"):
-        assert os.path.exists(join(data, "setups", f))
     assert glob.glob(join(data, "..", "log", "*.xlsx"))
     got = pd.read_csv(join(setup, "ret", CFG, "stats.txt"), sep="\t")
     assert got.shape == (1, 71)
-    assert pd.read_csv(join(data, "setups/stats_all.txt"),
-                       sep="\t").shape == (1, 71)
-    assert len(read_xlsx(join(data, "setups/pivot_table_all.xlsx"))) == 2
 
     # spaa_tpu summarizes the port's PNGs: the same table
     jroot = str(tmp_path / "jax")
     shutil.copytree(data, jroot)
-    shutil.rmtree(join(jroot, "setups/vtest/ret"))
-    JS.summarize_single_attacker("SPAA", jroot, ["vtest"],
+    shutil.rmtree(join(jroot, "setups/sim_setup/ret"))
+    JS.summarize_single_attacker("SPAA", jroot, ["sim_setup"],
                                  weights_dir=weights,
                                  classifier_names=["resnet18"],
                                  stealth_losses=["caml2"], d_threshes=[5])
-    want = pd.read_csv(join(jroot, "setups/vtest/ret", CFG, "stats.txt"),
+    want = pd.read_csv(join(jroot, "setups/sim_setup/ret", CFG, "stats.txt"),
                        sep="\t")
     assert list(got.columns) == list(want.columns)
     for col in want.columns:
@@ -100,6 +110,43 @@ def test_main_steps_1_to_7_and_10_on_cpu(tmp_path):
             assert abs(g - w) <= 2e-4 + 1e-5 * abs(w), col
         else:
             assert g == w, col
+
+    # step 9 (One-pixel DE through the simulator), then step 10 gathers
+    # the three attackers
+    root = tmp_path / "sim_benchmark"
+    shutil.copytree(data, root)
+    TM.main(["--data-root", str(root), "--steps", "1,2,9,10"] + SIM_ARGS
+            + ["--op-budget", "21", "1", "8", "6", "--weights-dir", weights])
+    setup = join(root, "setups", "sim_setup")
+    ofolder = join("One-pixel_DE", "-", "-", "resnet18")
+    for sub in ("prj/adv", "cam/raw/adv", "ret"):
+        assert len(glob.glob(join(setup, sub, ofolder, "img_*.png"))) == 11
+    assert not os.path.exists(join(setup, "cam/infer/adv", "One-pixel_DE"))
+    row = pd.read_csv(join(setup, "ret/One-pixel_DE/stats.txt"), sep="\t")
+    assert row.shape == (1, 71) and list(row["d_thr"]) == ["-"]
+    stats = pd.read_csv(join(root, "setups/stats_all.txt"), sep="\t")
+    assert stats.shape == (3, 71)
+    assert list(stats["Attacker"]) == [CFG, PCFG, "One-pixel_DE"]
+    for f in ("stats_all.xlsx", "pivot_table_all.xlsx"):
+        assert os.path.exists(join(root, "setups", f))
+    pivot = read_xlsx(join(root, "setups/pivot_table_all.xlsx"))
+    assert len(pivot) == 4
+    assert {r[0] for r in pivot[1:]} == {CFG, PCFG, "One-pixel_DE"}
+
+    # the --sim default list is all three attackers; summarize's full grid
+    # stops a row at its first missing classifier (inception_v3 <
+    # resnet18): One-pixel's ResNet-18 images stand in for it
+    for sub in ("prj/adv", "cam/raw/adv"):
+        shutil.copytree(join(setup, sub, ofolder), join(
+            setup, sub, "One-pixel_DE", "-", "-", "inception_v3"))
+    phase_json = str(tmp_path / "phases.json")
+    TR.main(["--sim", "--data-root", str(tmp_path), "--summarize-only",
+             "--device", "cpu", "--weights-dir", weights, "--phase-json",
+             phase_json])
+    rec = json.load(open(phase_json))
+    assert rec["attackers"] == ["SPAA", "PerC-AL+CompenNet++",
+                                "One-pixel_DE"]
+    assert rec["stats_all_rows"] == 2
 
 
 def test_reproduce_summarize_only_on_cpu(tmp_path):
@@ -123,22 +170,15 @@ def test_reproduce_summarize_only_on_cpu(tmp_path):
                          recursive=True)) == 11
 
 
-def test_main_step_8_and_the_default_attackers_on_cpu(tmp_path):
-    """``main --steps 1,2,8,10`` (PerC-AL+CompenNet++: CompenNet pre-trained
+def test_main_step_8_and_the_default_attackers_on_cpu(main_run, tmp_path):
+    """Step 8 of the fixture (PerC-AL+CompenNet++: CompenNet pre-trained
     and CompenNet++ trained 3 iterations, PerC-AL 2 iterations, ResNet-18,
     its one (camdE, 11) config), then ``reproduce_paper_results
     --summarize-only`` with the default attacker list (SPAA and PerC-AL
     without ``--sim``)."""
-    weights = _weights(tmp_path)
-    data = str(tmp_path / "data")
-    TM.main(["--data-root", data, "--setup-name", "vtest", "--steps",
-             "1,2,8,10", "--device", "cpu", "--sim-size", "32", "32", "32",
-             "24", "--num-train", "8", "--train-iters", "3",
-             "--attack-iters", "2", "--classifiers", "resnet18",
-             "--weights-dir", weights])
-    setup = join(data, "setups", "vtest")
-    pcfg = to_attacker_cfg_str("PerC-AL+CompenNet++")[0]
-    folder = join(pcfg, "camdE", "11", "resnet18")
+    tmp, data, weights = main_run
+    setup = join(data, "setups", "sim_setup")
+    folder = join(PCFG, "camdE", "11", "resnet18")
     for sub in ("prj/adv", "cam/infer/adv", "cam/raw/adv", "ret"):
         assert len(glob.glob(join(setup, sub, folder, "img_*.png"))) == 11
     assert os.path.exists(join(data, "..", "checkpoint",
@@ -146,45 +186,46 @@ def test_main_step_8_and_the_default_attackers_on_cpu(tmp_path):
                                "800_0.0001.flax"))
     assert len(os.listdir(join(setup, "prj/infer/test",
                                "CompenNet++_l1+ssim_8_8_3"))) == 3
-    got = pd.read_csv(join(setup, "ret", pcfg, "stats.txt"), sep="\t")
+    got = pd.read_csv(join(setup, "ret", PCFG, "stats.txt"), sep="\t")
     assert got.shape == (1, 71)
     assert list(got["Stealth_loss"]) == ["camdE"] and list(got["d_thr"]) \
         == [11]
-    stats = pd.read_csv(join(data, "setups/stats_all.txt"), sep="\t")
-    assert list(stats["Attacker"]) == [pcfg]     # step 10: no SPAA table
 
     # summarize's full grid stops a row at its first missing classifier
     # (inception_v3 < resnet18): the ResNet-18 images stand in for it
+    root = str(tmp_path / "data")
+    shutil.copytree(data, root)
+    setup = join(root, "setups", "sim_setup")
     for sub in ("prj/adv", "cam/infer/adv", "cam/raw/adv"):
         shutil.copytree(join(setup, sub, folder), join(
-            setup, sub, pcfg, "camdE", "11", "inception_v3"))
+            setup, sub, PCFG, "camdE", "11", "inception_v3"))
     phase_json = str(tmp_path / "phases.json")
-    TR.main(["--data-root", data, "--setups", "vtest", "--summarize-only",
+    TR.main(["--data-root", root, "--setups", "sim_setup", "--summarize-only",
              "--device", "cpu", "--weights-dir", weights, "--phase-json",
              phase_json])
     rec = json.load(open(phase_json))
     assert rec["attackers"] == ["SPAA", "PerC-AL+CompenNet++"]
     assert rec["stats_all_rows"] == 2
-    pivot = read_xlsx(join(data, "setups/pivot_table_all.xlsx"))
-    assert len(pivot) == 3 and {r[0] for r in pivot[1:]} == {pcfg}
+    pivot = read_xlsx(join(root, "setups/pivot_table_all.xlsx"))
+    assert len(pivot) == 3 and {r[0] for r in pivot[1:]} == {PCFG}
 
 
 def test_unported_paths_raise_and_cuda_is_the_default(tmp_path):
     root = str(tmp_path)
-    for argv, what in ((["--hardware"], "HardwareProCams"),
-                       (["--steps", "1-9"], "item 6"),
-                       (["--steps", "9"], "item 6")):
-        with pytest.raises(NotImplementedError, match=what):
+    for argv in (["--hardware"], ["--hardware", "--steps", "9"]):
+        with pytest.raises(NotImplementedError, match="HardwareProCams"):
             TM.main(["--data-root", root, "--device", "cpu"] + argv)
-    for argv, what in ((["--sim"], "One-pixel_DE"),
-                       (["--sim", "--attackers", "One-pixel_DE"], "item 6"),
-                       (["--attackers", "SPAA", "--multi-setup-train"],
-                        "item 7"),
-                       (["--multi-setup-attack"], "item 7")):
-        with pytest.raises(NotImplementedError, match=what):
+    for argv in (["--sim", "--multi-setup-train"],
+                 ["--attackers", "SPAA", "--multi-setup-train"],
+                 ["--sim", "--attackers", "One-pixel_DE",
+                  "--multi-setup-attack"],
+                 ["--multi-setup-attack"]):
+        with pytest.raises(NotImplementedError, match="item 7"):
             TR.main(["--data-root", root, "--device", "cpu"] + argv)
     assert not os.listdir(root), "nothing may run before the raise"
     assert TM.parse_args([]).device == TR.parse_args([]).device == "cuda"
+    assert TM.parse_args(["--op-budget", "21", "1", "8", "6"]).op_budget \
+        == [21, 1, 8, 6]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TM.main(["--data-root", root, "--steps", "1"])

@@ -1,8 +1,9 @@
 """Port check (a): every module of ``spaa_tpu_torch`` imports without JAX,
-``spaa_tpu`` or a host package the GPU machine lacks, an entry point
-called without ``device`` runs on CUDA or raises where there is none, and
-what is not ported yet raises ``NotImplementedError`` naming its
-ROADMAP.md item."""
+``spaa_tpu``, a host package the GPU machine lacks, visdom or matplotlib,
+an entry point called without ``device`` runs on CUDA or raises where
+there is none, and what is not ported yet (the hardware ProCams, the
+multi-setup paths) raises ``NotImplementedError`` naming its ROADMAP.md
+item."""
 
 import json
 import os
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 import spaa_tpu_torch
+from spaa_tpu_torch import main as TM
+from spaa_tpu_torch import reproduce_paper_results as TR
 from spaa_tpu_torch.attack.orchestrate import (get_attacker_cfg,
                                                run_projector_based_attack)
 from spaa_tpu_torch.models.classifiers import Classifier
@@ -27,6 +30,7 @@ from spaa_tpu_torch.utils.imgproc_host import threshold_im
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "spaa_tpu", "cv2", "PIL",
              "yaml", "pandas", "msgpack")
+PLOTTING = ("visdom", "matplotlib")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -51,9 +55,12 @@ def test_port_imports_nothing_forbidden():
     assert sorted(res["modules"]) == sorted(expected)
     for name in ("ops.warp", "utils.table", "utils.xlsx", "utils.procams",
                  "attack.summarize", "main", "reproduce_paper_results",
-                 "attack.perc_al", "models.compen_net", "models.init"):
+                 "attack.perc_al", "models.compen_net", "models.init",
+                 "attack.one_pixel", "digital_one_pixel_attack",
+                 "utils.vis"):
         assert "spaa_tpu_torch." + name in res["modules"], name
     assert not set(res["loaded"]) & set(FORBIDDEN), res["loaded"]
+    assert not set(res["loaded"]) & set(PLOTTING), res["loaded"]
 
 
 def test_entry_points_default_to_cuda(tmp_path):
@@ -74,23 +81,30 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_eval_compennet_pp(get_model_train_cfg(
             ["CompenNet++"], str(tmp_path), ["none"]))
-    cfg = get_attacker_cfg("PerC-AL+CompenNet++", str(tmp_path), ["none"])
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        run_projector_based_attack(cfg)
+    for name in ("PerC-AL+CompenNet++", "One-pixel_DE"):
+        cfg = get_attacker_cfg(name, str(tmp_path), ["none"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_projector_based_attack(cfg)
     assert resolve_device("cpu").type == "cpu"
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
 def test_unported_parts_raise_not_implemented(tmp_path):
-    cfg = get_attacker_cfg("One-pixel_DE", str(tmp_path), ["none"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
-        run_projector_based_attack(cfg, device="cpu")
+    root = str(tmp_path)
+    with pytest.raises(NotImplementedError, match="HardwareProCams"):
+        TM.main(["--data-root", root, "--device", "cpu", "--hardware"])
+    for flag in ("--multi-setup-train", "--multi-setup-attack"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue A item 7"):
+            TR.main(["--data-root", root, "--device", "cpu", "--sim", flag])
     assert not os.listdir(tmp_path), "nothing may run before the raise"
-    # PerC-AL+CompenNet++ is ported: it gets as far as reading the setup
-    cfg = get_attacker_cfg("PerC-AL+CompenNet++", str(tmp_path), ["none"])
-    with pytest.raises(FileNotFoundError):
-        run_projector_based_attack(cfg, device="cpu")
+    # PerC-AL+CompenNet++ and One-pixel DE are ported: they get as far as
+    # reading the setup
+    for name in ("PerC-AL+CompenNet++", "One-pixel_DE"):
+        cfg = get_attacker_cfg(name, root, ["none"])
+        with pytest.raises(FileNotFoundError):
+            run_projector_based_attack(cfg, device="cpu")
     # ... and so is CompenNet++'s mask
     mask = np.zeros((6, 8), bool)
     mask[1:4, 2:7] = True
