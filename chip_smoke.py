@@ -46,12 +46,30 @@ Phases, each printed on its own lines:
    CompenNet++'s and a floor, peak memory; the port's loader reads the
    checkpoint back; then each model's iteration re-timed on the default
    kernels (ms, steady state);
-8. percal: ``run_projector_based_attack`` for PerC-AL+CompenNet++ with
+8. multisetup: a data root of two setups (a copy of ``sim_setup`` and
+   ``sim_setup_2`` from ``SimProCams(seed=20)``, 500 + 200 pairs, written
+   by a child process that starts after ``[sim]``, host seconds;
+   CompenNet's pre-training checkpoint copied, and never re-trained): 6
+   iterations of ``train_pcnet_multi_setup`` and of
+   ``train_compennet_pp_multi_setup`` with the two setups in one call
+   against two sequential ``train_model`` runs each from the same draws,
+   float32 on deterministic kernels (losses within rtol 1e-3), then ms per
+   iteration of the two-setup call on the default kernels beside twice
+   ``[train]``'s; ``pretrain_pcnets_multi_setup`` and
+   ``pretrain_compennets_pp_multi_setup`` at chunk 2 (200 iterations, both
+   setups trained, each PSNR above its untrained model's, then both
+   cached); ``run_spaa_attack_multi_setup`` (ResNet-18, 132 images x 50
+   iterations a setup: s/config, peak memory, 264 PNGs, 50 + 50 warp
+   launches a setup, counted into the kernels line) and
+   ``run_percal_attack_multi_setup`` (22 PNGs a setup, no launch) with
+   ``load_pretrained`` and no mesh (waves of one); the multi-device path
+   only with more than one card;
+9. percal: ``run_projector_based_attack`` for PerC-AL+CompenNet++ with
    ``load_pretrained`` on that CompenNet++, ResNet-18, VGG-16 and
    Inception-v3, the fused 10 targeted + 1 untargeted batch x 50
    iterations each: seconds, ms/iteration (5 iterations re-timed), peak
    memory, 22 PNGs, finite outputs in [0, 1], no warp launch;
-9. onepixel: ``run_projector_based_attack`` for One-pixel DE through the
+10. onepixel: ``run_projector_based_attack`` for One-pixel DE through the
    port's ``SimProCams`` at the default budget (block 41, 4 generations,
    population 50 untargeted and 10 targeted) on the three classifiers:
    per classifier the captures, classifier batches, cache misses (0),
@@ -61,12 +79,12 @@ Phases, each printed on its own lines:
    (probabilities within 1e-4, trial-versus-parent decisions that differ,
    bitwise equality of one image across batch sizes and positions); then
    ``python -m spaa_tpu_torch.digital_one_pixel_attack`` as a child;
-10. main path on the trained setup, ResNet-18 (224x224), VGG-16 (224x224)
+11. main path on the trained setup, ResNet-18 (224x224), VGG-16 (224x224)
    and Inception-v3 (299x299): ``run_projector_based_attack`` with
    ``load_pretrained`` on the trained checkpoint, the full 132-image x
    50-iteration sweep per classifier: s/config, ms/iteration, peak memory,
    264 PNGs, finite outputs in [0, 1], 50 + 50 warp launches each;
-11. pipeline: as subprocesses, ``python -m spaa_tpu_torch.main --steps
+12. pipeline: as subprocesses, ``python -m spaa_tpu_torch.main --steps
    6,7,8,9 --load-pretrained --train-iters 200`` (the replay of the 396
    SPAA projections through the port's ``SimProCams``, the SPAA
    summarize: 36 rows of 71 columns, 396 montages; then step 8: the
@@ -125,6 +143,7 @@ COMPEN_ITERS = 200            # CompenNet++ training budget of the smoke
 # section 6, PR 5)
 COMPEN_PSNR_FLOOR = 18.0
 STEADY_WARMUP, STEADY_STEPS = 3, 10   # re-timed training iterations
+MULTI_CHECK_ITERS = 6         # multi-setup vs sequential training, [multisetup]
 
 
 def log(msg):
@@ -833,6 +852,417 @@ def phase_compennet(data_root, dev):
                 peak_bytes=peak)
 
 
+# the [multisetup] root's second setup, written by a child process
+SIM2_CHILD = """
+import sys, time
+from spaa_tpu_torch.utils.sim_procams import DEFAULT_SIM_SETUP_INFO, SimProCams
+t0 = time.time()
+SimProCams(dict(DEFAULT_SIM_SETUP_INFO), seed=20).make_setup(
+    sys.argv[1], "sim_setup_2", num_train=int(sys.argv[2]),
+    num_test=int(sys.argv[3]))
+print(f"{time.time() - t0:.3f}")
+"""
+
+
+def start_multisetup_root(sim_root, tmp):
+    """The ``[multisetup]`` data root, begun right after ``[sim]`` so that
+    the second setup's host-bound generation overlaps ``[train]`` and
+    ``[compennet]`` on the card: a copy of the ``[sim]`` root
+    (``sim_setup``, the shared projector images, the labels), and a child
+    process writing ``sim_setup_2`` with the port's ``SimProCams(seed=20)``
+    (seeds 7 + 13 k, the ``--num-sim-setups`` rule). Returns the root and
+    the child."""
+    root = join(tmp, "multi", "sim_benchmark")
+    shutil.copytree(sim_root, root)
+    child = subprocess.Popen(
+        [sys.executable, "-c", SIM2_CHILD, root, str(NUM_TRAIN),
+         str(NUM_VALID)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": REPO})
+    return root, child
+
+
+def finish_multisetup_root(root, child, sim_root):
+    """Wait for ``sim_setup_2``; copy CompenNet's pre-training checkpoint
+    from the ``[compennet]`` root."""
+    from spaa_tpu_torch.train.pipeline import INIT_CKPT_NAME
+    t0 = time.time()
+    try:
+        out, err = child.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        raise
+    if child.returncode != 0:
+        raise AssertionError(f"SimProCams(seed=20) child failed "
+                             f"({child.returncode}): {err[-2000:]}")
+    ckpt_dir = join(dirname(root), "checkpoint")
+    os.makedirs(ckpt_dir)
+    init_ckpt = join(ckpt_dir, INIT_CKPT_NAME + ".flax")
+    shutil.copy2(join(sim_root, "..", "checkpoint", INIT_CKPT_NAME + ".flax"),
+                 init_ckpt)
+    log(f"[multisetup] SimProCams(seed=20).make_setup(sim_setup_2), a child "
+        f"process started after [sim]: {NUM_TRAIN} train + {NUM_VALID} "
+        f"validation pairs in {float(out.split()[-1]):.3f} s host time, "
+        f"{time.time() - t0:.3f} s waited for here; sim_setup copied from "
+        f"the [sim] root, CompenNet's pre-training checkpoint from the "
+        f"[compennet] root")
+    return ckpt_dir, init_ckpt
+
+
+def draw_model(d, dev, model_name, compen=None):
+    """A setup's initial model as its pipeline draws it: PCNet under
+    reseed 123 (``train_eval_pcnet``), CompenNet++ under reseed 0 with
+    the inverse affine and the pre-trained CompenNet spliced in
+    (``train_eval_compennet_pp``)."""
+    from spaa_tpu_torch.models.compen_net import CompenNetPlusplus
+    from spaa_tpu_torch.train import pipeline as P
+    from spaa_tpu_torch.utils.seed import reset_rng_seeds
+    if model_name == "PCNet":
+        return P._build_pcnet("PCNet", d["cam_scene"].shape[1:3],
+                              d["mask_corners"],
+                              reset_rng_seeds(123)).to(dev)
+    net = P._set_affine(CompenNetPlusplus(
+        d["prj_train"].shape[1:3]).init_weights(reset_rng_seeds(0)),
+        d["mask_corners"], inverse=True)
+    net.compen_net.load_state_dict(compen.state_dict())
+    return net.to(dev)
+
+
+def multi_vs_sequential(datas, dev, mc, mc2, root, ms_seq):
+    """MULTI_CHECK_ITERS iterations of the two setups in one call of each
+    multi-setup trainer against two sequential ``train_model`` runs with
+    the pipelines' losses and optimizers, from the same initial draws and
+    minibatch plan, float32 on deterministic kernels, held to rtol 1e-3;
+    then the two-setup PCNet call re-timed on the default kernels."""
+    import numpy as np
+    import torch
+    from spaa_tpu_torch.models.compen_net import CompenNetPlusplus
+    from spaa_tpu_torch.models.pcnet import PCNet
+    from spaa_tpu_torch.parallel import (train_compennet_pp_multi_setup,
+                                         train_pcnet_multi_setup)
+    from spaa_tpu_torch.train import pipeline as P
+    from spaa_tpu_torch.train.data import as_uint8_wire
+    from spaa_tpu_torch.train.train import (make_compennet_pp_optimizer,
+                                            make_pcnet_optimizer,
+                                            sample_batch_indices,
+                                            train_model)
+    from spaa_tpu_torch.utils.config import DictConfig
+    from spaa_tpu_torch.utils.seed import set_reproducibility
+
+    compen = P.init_compennet(root, mc2, dev)
+    prj = [as_uint8_wire(d["prj_train"]) for d in datas]
+    cam = [as_uint8_wire(d["cam_train"]) for d in datas]
+    scenes = np.stack([d["cam_scene"] for d in datas])
+
+    def multi(model_name, iters):
+        models = [draw_model(d, dev, model_name, compen) for d in datas]
+        idx = sample_batch_indices(NUM_TRAIN, 24, iters)
+        sds = [m.state_dict() for m in models]
+        if model_name == "PCNet":
+            return train_pcnet_multi_setup(
+                PCNet(out_size=tuple(datas[0]["cam_scene"].shape[1:3])), sds,
+                lambda m: make_pcnet_optimizer(m, mc), scenes,
+                np.stack([d["mask"] for d in datas]), np.stack(prj),
+                np.stack(cam), idx, curriculum_iter=400)
+        return train_compennet_pp_multi_setup(
+            CompenNetPlusplus(tuple(datas[0]["prj_train"].shape[1:3])), sds,
+            lambda m: make_compennet_pp_optimizer(m, mc2), scenes,
+            np.stack(cam), np.stack(prj), idx)
+
+    n = MULTI_CHECK_ITERS
+    set_reproducibility(True)
+    try:
+        for model_name in ("PCNet", "CompenNet++"):
+            t0 = time.time()
+            _, losses, _ = multi(model_name, n)
+            seq = []
+            for s, d in enumerate(datas):
+                model = draw_model(d, dev, model_name, compen)
+                idx = sample_batch_indices(NUM_TRAIN, 24, n)
+                scene = torch.from_numpy(d["cam_scene"]).to(dev)
+                if model_name == "PCNet":
+                    opt, sched = make_pcnet_optimizer(model, mc)
+                    loss_fn = P.make_pcnet_loss(
+                        model, scene, torch.from_numpy(d["mask"]).to(dev))
+                    arrays = dict(inputs=prj[s], targets=cam[s])
+                else:
+                    opt, sched = make_compennet_pp_optimizer(model, mc2)
+                    loss_fn = P.make_compennet_loss(model, scene, "l1+ssim")
+                    arrays = dict(inputs=cam[s], targets=prj[s])
+                curve = []
+                train_model(loss_fn, model, opt, sched, arrays, idx,
+                            DictConfig(dict(max_iters=n, valid_rate=n)), dev,
+                            log_prefix="[multisetup]   ", step_losses=curve)
+                seq.append([c[0] for c in curve])
+            seq = np.asarray(seq, np.float32).T
+            per_iter = np.max(np.abs(losses - seq) / np.abs(seq), axis=1)
+            rel = float(per_iter.max())
+            log(f"[multisetup] {model_name}: {n} iterations of 2 setups in "
+                f"one call on {dev} vs two sequential train_model runs, "
+                f"float32, deterministic kernels, {time.time() - t0:.3f} s: "
+                f"losses {losses.tolist()} sequential {seq.tolist()}; "
+                f"max relative difference {rel:.3e} (tolerance 1e-3), "
+                f"bitwise equal: {bool(np.array_equal(losses, seq))}")
+            if not rel <= 1e-3:
+                raise AssertionError(f"{model_name}: the multi-setup and "
+                                     f"sequential losses differ by {rel} "
+                                     f"(relative)")
+    finally:
+        set_reproducibility(False)
+    # steady state: two calls that differ by 10 iterations
+    walls = []
+    for iters in (3, 13):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        multi("PCNet", iters)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    ms_multi = 1e3 * (walls[1] - walls[0]) / 10
+    log(f"[multisetup] steady state, default kernels, batch 24 a setup: "
+        f"{ms_multi:.2f} ms per iteration of 2 setups (calls of 13 and 3 "
+        f"iterations, {walls[1]:.3f} - {walls[0]:.3f} s, over 10) vs 2 x "
+        f"{ms_seq:.2f} = {2 * ms_seq:.2f} ms sequential ([train], l1)")
+    return ms_multi
+
+
+def untrained_psnr(datas, dev, model_name, data_root, mc):
+    """Each setup's validation PSNR before training, from the pipeline's
+    own initial draw."""
+    import torch
+    from spaa_tpu_torch.train import pipeline as P
+    from spaa_tpu_torch.train.data import as_uint8_wire
+    from spaa_tpu_torch.train.train import make_evaluator
+    compen = None if model_name == "PCNet" else \
+        P.init_compennet(data_root, mc, dev)
+    out = []
+    for d in datas:
+        scene = torch.from_numpy(d["cam_scene"]).to(dev)
+        net = draw_model(d, dev, model_name, compen)
+        if model_name == "PCNet":
+            mask = torch.from_numpy(d["mask"]).to(dev)
+            ev = make_evaluator(lambda x: net(x, scene, mask),
+                                as_uint8_wire(d["prj_valid"]),
+                                as_uint8_wire(d["cam_valid"]), dev)
+        else:
+            ev = make_evaluator(lambda x: net(x, scene),
+                                as_uint8_wire(d["cam_valid"]),
+                                as_uint8_wire(d["prj_valid"]), dev)
+        out.append(ev()[0])
+    return out
+
+
+def fill_cache(fill, mc, names, dev, psnr0, what, psnr_train=None):
+    """One cache filler at chunk 2: both setups trained, each PSNR above
+    its untrained model's; a second call finds both cached."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rows = fill(mc, chunk=2, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    beside = "" if psnr_train is None else \
+        f" ([train]'s one setup on deterministic kernels: {psnr_train:.4f})"
+    log(f"[multisetup] {what}: {mc.max_iters} iterations of 2 setups, "
+        f"one after the other at batch 24, default kernels, {wall:.3f} s "
+        f"wall (data load, validation and checkpoints included); peak memory "
+        f"{peak / 2**30:.3f} GiB; " + "; ".join(
+            f"{r['setup']} {r['status']} valid PSNR {r.get('PSNR', 0):.4f} "
+            f"RMSE {r.get('RMSE', 0):.4f} SSIM {r.get('SSIM', 0):.4f} "
+            f"(untrained {p0:.4f})" for r, p0 in zip(rows, psnr0)) + beside)
+    if [r["status"] for r in rows] != ["trained", "trained"] or \
+            [r["setup"] for r in rows] != names:
+        raise AssertionError(f"{what}: {rows}")
+    for r, p0 in zip(rows, psnr0):
+        if not (math.isfinite(r["PSNR"]) and r["PSNR"] > p0):
+            raise AssertionError(f"{what}: {r['setup']} valid PSNR "
+                                 f"{r['PSNR']} is not above the untrained "
+                                 f"{p0}")
+    again = fill(mc, chunk=2, device=dev)
+    log(f"[multisetup] {what} again: {[r['status'] for r in again]}")
+    if [r["status"] for r in again] != ["cached", "cached"]:
+        raise AssertionError(f"{what} second call: {again}")
+    return dict(wall_s=wall, peak_bytes=peak, rows=rows)
+
+
+def mtimes(ckpt_dir):
+    return {f: os.path.getmtime(join(ckpt_dir, f))
+            for f in sorted(os.listdir(ckpt_dir)) if f.endswith(".flax")}
+
+
+def multisetup_waves(root, names, dev, ckpt_dir):
+    """``run_spaa_attack_multi_setup`` (ResNet-18, the full sweep, ITERS
+    iterations) and ``run_percal_attack_multi_setup`` (ResNet-18, camdE /
+    11) with ``load_pretrained`` on one card: waves of one, each setup's
+    sweep timed through a wrapper of the sequential program it runs; the
+    launch counts are set to 0 just before each driver and read just
+    after it. The checkpoints must load, not retrain."""
+    import torch
+    from spaa_tpu_torch.attack import orchestrate as O
+    from spaa_tpu_torch.ops import warp as W
+    from spaa_tpu_torch.parallel import (run_percal_attack_multi_setup,
+                                         run_spaa_attack_multi_setup)
+    before = mtimes(ckpt_dir)
+    out = {}
+    for attacker, driver, sweep in (
+            ("SPAA", run_spaa_attack_multi_setup, "_run_spaa_sweep"),
+            ("PerC-AL+CompenNet++", run_percal_attack_multi_setup,
+             "_run_percal_sweep")):
+        cfg = O.get_attacker_cfg(attacker, root, names, load_pretrained=True)
+        cfg.classifier_names = ["resnet18"]
+        cfg.attack_iters = ITERS
+        cfg.max_iters = TRAIN_ITERS if attacker == "SPAA" else COMPEN_ITERS
+        n_cfg = len(cfg.stealth_losses) * len(cfg.d_threshes)
+        seen = []
+        orig = getattr(O, sweep)
+
+        def timed(cfg_, trained, clf, cam_scene, *args, _orig=orig,
+                  _seen=seen):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            l0 = dict(W.LAUNCHES)
+            t0 = time.time()
+            res = _orig(cfg_, trained, clf, cam_scene, *args)
+            torch.cuda.synchronize()
+            _seen.append(dict(
+                wall=time.time() - t0, out=res,
+                launches={k: W.LAUNCHES[k] - l0[k] for k in l0},
+                peak=torch.cuda.max_memory_allocated()))
+            return res
+
+        setattr(O, sweep, timed)
+        torch.cuda.synchronize()
+        W.reset_launch_counts()
+        t0 = time.time()
+        try:
+            driver(cfg, mesh=None, weights_dir=join(REPO, "checkpoint"),
+                   device=dev)
+        finally:
+            setattr(O, sweep, orig)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(W.LAUNCHES)
+        if len(seen) != len(names):
+            raise AssertionError(f"{attacker}: {len(seen)} sweeps for "
+                                 f"{len(names)} setups")
+        cfg_str = O.to_attacker_cfg_str(attacker)[0]
+        for name, s in zip(names, seen):
+            cam, prj = s["out"]
+            n_png = count_pngs(join(root, "setups", name), "resnet18",
+                               cfg_str)
+            ok_out = all(bool(torch.isfinite(t).all())
+                         and float(t.min()) >= 0.0 and float(t.max()) <= 1.0
+                         for t in (cam, prj))
+            log(f"[multisetup] {attacker} wave of one, {name}: "
+                f"{s['wall']:.3f} s wall ({s['wall'] / n_cfg:.3f} s/config) "
+                f"for {cam.shape[0]} images x {ITERS} iterations; peak memory "
+                f"{s['peak'] / 2**30:.3f} GiB; {n_png} PNGs; outputs finite "
+                f"and in [0,1]: {ok_out}; launches {s['launches']}")
+            want = ITERS if attacker == "SPAA" else 0
+            if n_png != 2 * 11 * n_cfg or not ok_out or \
+                    any(v != want for v in s["launches"].values()):
+                raise AssertionError(f"{attacker} wave, {name}: {n_png} "
+                                     f"PNGs, outputs in [0, 1] {ok_out}, "
+                                     f"launches {s['launches']}")
+        log(f"[multisetup] {attacker} driver: {wall:.3f} s wall for "
+            f"{len(names)} setups (checkpoints loaded, classifier built, "
+            f"PNGs written); launches {launches}")
+        out[attacker] = dict(wall_s=wall, launches=launches, sweeps=seen)
+    after = mtimes(ckpt_dir)
+    if after != before:
+        raise AssertionError(f"the wave drivers retrained: {before} -> "
+                             f"{after}")
+    return out
+
+
+def phase_multisetup(root, child, sim_root, dev, train_res):
+    """Setup-parallel training and attack waves at full width on ``root``
+    (:func:`start_multisetup_root`): the two trainers' calls of two setups
+    against two sequential runs each, the two cache fillers at chunk 2, then the SPAA and
+    PerC-AL wave drivers; the multi-device path runs only on a machine
+    with more than one card."""
+    import torch
+    from spaa_tpu_torch.parallel import (pretrain_compennets_pp_multi_setup,
+                                         pretrain_pcnets_multi_setup)
+    from spaa_tpu_torch.train.data import load_data
+    from spaa_tpu_torch.train.train import get_model_train_cfg
+
+    t_phase = time.time()
+    names = ["sim_setup", "sim_setup_2"]
+    ckpt_dir, init_ckpt = finish_multisetup_root(root, child, sim_root)
+    init_mtime = os.path.getmtime(init_ckpt)
+    datas = [load_data(root, n) for n in names]
+    mc = get_model_train_cfg(["PCNet"], root, names)
+    mc.max_iters = TRAIN_ITERS
+    mc.valid_rate = VALID_RATE
+    mc2 = get_model_train_cfg(["CompenNet++"], root, names)
+    mc2.max_iters = COMPEN_ITERS
+    mc2.valid_rate = VALID_RATE
+    ms_multi = multi_vs_sequential(datas, dev, mc, mc2, root,
+                                   train_res["ms_l1"])
+    pc = fill_cache(pretrain_pcnets_multi_setup, mc, names, dev,
+                    untrained_psnr(datas, dev, "PCNet", root, mc),
+                    "pretrain_pcnets_multi_setup", train_res["psnr"])
+    cp = fill_cache(pretrain_compennets_pp_multi_setup, mc2, names, dev,
+                    untrained_psnr(datas, dev, "CompenNet++", root, mc2),
+                    "pretrain_compennets_pp_multi_setup")
+    del datas
+    waves = multisetup_waves(root, names, dev, ckpt_dir)
+    if os.path.getmtime(init_ckpt) != init_mtime or \
+            sum(f.startswith("init_") for f in os.listdir(ckpt_dir)) != 1:
+        raise AssertionError("CompenNet's pre-training ran again")
+    log("[multisetup] CompenNet's pre-training checkpoint unchanged (loaded, "
+        "not re-trained)")
+    n_dev = torch.cuda.device_count()
+    if n_dev == 1:
+        log("[multisetup] the multi-device path (one setup per card, a "
+            "host thread each) is not run: 1 card")
+    else:
+        multisetup_multi_device(root, names, n_dev)
+    log(f"[multisetup] phase {time.time() - t_phase:.3f} s wall")
+    return dict(ms_multi=ms_multi, pcnet=pc, compennet=cp, waves=waves)
+
+
+def multisetup_multi_device(root, names, n_dev):
+    """With more than one card: both wave drivers again on a mesh of every
+    card, into a copy of the data root, against the one-card outputs
+    (decoded PNGs within 1 count)."""
+    from spaa_tpu_torch.attack import orchestrate as O
+    from spaa_tpu_torch.parallel import (make_mesh,
+                                         run_percal_attack_multi_setup,
+                                         run_spaa_attack_multi_setup)
+    from spaa_tpu_torch.utils.io import imread_u8
+    copy_root = join(dirname(dirname(root)), "multi_device", "sim_benchmark")
+    shutil.copytree(dirname(root), dirname(copy_root),
+                    ignore=shutil.ignore_patterns("adv"))
+    mesh = make_mesh(min(n_dev, len(names)), axis="setup")
+    t0 = time.time()
+    for attacker, driver in (("SPAA", run_spaa_attack_multi_setup),
+                             ("PerC-AL+CompenNet++",
+                              run_percal_attack_multi_setup)):
+        cfg = O.get_attacker_cfg(attacker, copy_root, names,
+                                 load_pretrained=True)
+        cfg.classifier_names = ["resnet18"]
+        cfg.attack_iters = ITERS
+        cfg.max_iters = TRAIN_ITERS if attacker == "SPAA" else COMPEN_ITERS
+        driver(cfg, mesh=mesh, weights_dir=join(REPO, "checkpoint"))
+    worst, n = 0, 0
+    for d, _, files in os.walk(join(root, "setups")):
+        if "adv" not in d.split(os.sep):
+            continue
+        for f in files:
+            a = imread_u8(join(d, f)).astype(int)
+            b = imread_u8(join(d.replace(root, copy_root), f)).astype(int)
+            worst, n = max(worst, int(abs(a - b).max())), n + 1
+    log(f"[multisetup] multi-device waves on {mesh.size} cards: "
+        f"{time.time() - t0:.3f} s; {n} PNGs against the one-card run, max "
+        f"difference {worst} counts")
+    if worst > 1:
+        raise AssertionError(f"multi-device waves differ by {worst} counts")
+
+
 def phase_percal(data_root, dev):
     """run_projector_based_attack for PerC-AL+CompenNet++ with
     load_pretrained on the CompenNet++ just trained: the three
@@ -1291,15 +1721,24 @@ def main():
         res = phase_main_path(cfg, trained, dev)
         check_against_cpu(data_root, res["prj_small"], res["on_card"])
         sim_root, _ = phase_sim(tmp)
-        phase_train(sim_root, dev)
-        phase_compennet(sim_root, dev)
+        multi_root, child = start_multisetup_root(sim_root, tmp)
+        try:
+            train_res = phase_train(sim_root, dev)
+            phase_compennet(sim_root, dev)
+        except BaseException:
+            child.kill()
+            child.wait()
+            raise
+        multi = phase_multisetup(multi_root, child, sim_root, dev,
+                                 train_res)
         phase_percal(sim_root, dev)
         phase_onepixel(sim_root, dev)
         sweeps = [res] + [phase_attack(sim_root, dev, name)
                           for name in ("resnet18", "vgg16", "inception_v3")]
         phase_pipeline(sim_root, dev)
     for r in rows:
-        r["launches"] = sum(sw["launches"][r["name"]] for sw in sweeps)
+        r["launches"] = sum(sw["launches"][r["name"]] for sw in sweeps) + \
+            multi["waves"]["SPAA"]["launches"][r["name"]]
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

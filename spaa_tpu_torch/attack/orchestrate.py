@@ -335,6 +335,53 @@ def _run_one_pixel(cfg, one_pixel_de, classifier, im_prj_org, target_idx,
     return tables
 
 
+def attack_labels(data_root: str, n: int = 10):
+    """The ImageNet labels and the first ``n`` target classes of the
+    10-class list (ref ``projector_based_attack.py:79-81``)."""
+    imagenet_labels = load_imagenet_labels(
+        join(data_root, "imagenet1000_clsidx_to_labels.txt"))
+    target_labels = load_imagenet_labels(
+        join(data_root, "imagenet10_clsidx_to_labels.txt"))
+    return imagenet_labels, list(itertools.islice(target_labels.keys(), n))
+
+
+def load_attack_setup(data_root: str, setup_name: str, dev):
+    """One setup's path, info, classifier crop size and reference camera
+    scene [1, H, W, 3] on ``dev`` (ref ``projector_based_attack.py:31-44``)."""
+    setup_path = join(data_root, "setups", setup_name)
+    setup_info = load_setup_info(setup_path)
+    cp_sz = tuple(int(c) for c in setup_info["classifier_crop_sz"])
+    w_cam, h_cam = setup_info["cam_im_sz"]
+    cam_scene = center_crop(torch.from_numpy(
+        imread(join(setup_path, "cam/raw/ref/img_0002.png")))[None],
+        (h_cam, w_cam)).to(dev)
+    return setup_path, setup_info, cp_sz, cam_scene
+
+
+def train_attacker_model(cfg, setup_name: str, dev):
+    """The attacker's model of one setup (PCNet for SPAA, CompenNet++ for
+    PerC-AL), trained, or with ``cfg.load_pretrained`` and a checkpoint
+    under its config-string key loaded, through ``train.pipeline``;
+    ``cfg.max_iters`` overrides its training budget and
+    ``cfg.init_max_iters`` CompenNet's pre-training. Sets
+    ``cfg.model_cfg``; returns the ``TrainedModel``."""
+    model_cfg = get_model_train_cfg(
+        None, cfg.data_root, [setup_name],
+        load_pretrained=cfg.load_pretrained, plot_on=cfg.plot_on)
+    if "max_iters" in cfg:
+        model_cfg.max_iters = cfg.max_iters
+    if cfg.attacker_name == "SPAA":
+        model_cfg.model_list = ["PCNet"]
+        trained, _, model_cfg = train_eval_pcnet(model_cfg, dev)
+    else:
+        model_cfg.model_list = ["CompenNet++"]
+        if "init_max_iters" in cfg:
+            model_cfg.init_max_iters = cfg.init_max_iters
+        trained, _, model_cfg = train_eval_compennet_pp(model_cfg, dev)
+    cfg.model_cfg = dict(model_cfg)
+    return trained
+
+
 def run_projector_based_attack(cfg, procams=None,
                                weights_dir: Optional[str] = None,
                                device=None):
@@ -343,10 +390,7 @@ def run_projector_based_attack(cfg, procams=None,
     ``procams``: the project-and-capture object One-pixel DE attacks
     through (``utils.sim_procams.SimProCams``); the other attackers ignore
     it. ``weights_dir``: where to look for classifier ``.pth`` files. The
-    attacker's model (PCNet for SPAA, CompenNet++ for PerC-AL) trains, or
-    with ``cfg.load_pretrained`` and a checkpoint under its config-string
-    key loads, through ``train.pipeline``; ``cfg.max_iters`` overrides its
-    training budget and ``cfg.init_max_iters`` CompenNet's pre-training."""
+    attacker's model comes from :func:`train_attacker_model`."""
     dev = resolve_device(device)
     attacker_name = cfg.attacker_name
     if attacker_name not in ATTACKER_NAMES:
@@ -356,38 +400,16 @@ def run_projector_based_attack(cfg, procams=None,
         "simultaneously!"
     reset_rng_seeds(0)
 
+    n = 10  # 10 targeted + 1 untargeted (ref :79-81)
+    imagenet_labels, target_idx = attack_labels(cfg.data_root, n)
     for setup_name in cfg.setup_list:
         print(f"\nPerforming [{attacker_name}] attack on [{setup_name}]")
-        setup_path = join(cfg.data_root, "setups", setup_name)
-        setup_info = load_setup_info(setup_path)
-        cp_sz = tuple(int(c) for c in setup_info["classifier_crop_sz"])
-        w_cam, h_cam = setup_info["cam_im_sz"]
-        cam_scene = center_crop(torch.from_numpy(
-            imread(join(setup_path, "cam/raw/ref/img_0002.png")))[None],
-            (h_cam, w_cam)).to(dev)
-
-        imagenet_labels = load_imagenet_labels(
-            join(cfg.data_root, "imagenet1000_clsidx_to_labels.txt"))
-        target_labels = load_imagenet_labels(
-            join(cfg.data_root, "imagenet10_clsidx_to_labels.txt"))
+        setup_path, setup_info, cp_sz, cam_scene = load_attack_setup(
+            cfg.data_root, setup_name, dev)
 
         dl_based = attacker_name != "One-pixel_DE"
         if dl_based:
-            model_cfg = get_model_train_cfg(
-                None, cfg.data_root, [setup_name],
-                load_pretrained=cfg.load_pretrained, plot_on=cfg.plot_on)
-            if "max_iters" in cfg:
-                model_cfg.max_iters = cfg.max_iters
-            if attacker_name == "SPAA":
-                model_cfg.model_list = ["PCNet"]
-                trained, _, model_cfg = train_eval_pcnet(model_cfg, dev)
-            else:
-                model_cfg.model_list = ["CompenNet++"]
-                if "init_max_iters" in cfg:
-                    model_cfg.init_max_iters = cfg.init_max_iters
-                trained, _, model_cfg = train_eval_compennet_pp(model_cfg,
-                                                                dev)
-            cfg.model_cfg = dict(model_cfg)
+            trained = train_attacker_model(cfg, setup_name, dev)
         else:
             assert procams is not None, \
                 "One-pixel_DE needs a procams (hardware or simulator)"
@@ -399,10 +421,6 @@ def run_projector_based_attack(cfg, procams=None,
                                  np.float32)
             one_pixel_de.im_cam_org = cam_scene[0].cpu().numpy()
         attacker_cfg_str = to_attacker_cfg_str(attacker_name)[0]
-
-        n = 10  # 10 targeted + 1 untargeted (ref :79-81)
-        target_labels = dict(itertools.islice(target_labels.items(), n))
-        target_idx = list(target_labels.keys())
 
         for classifier_name in cfg.classifier_names:
             classifier = Classifier(classifier_name, weights_dir,

@@ -17,13 +17,17 @@ Steps (reference ``main.py`` cell numbers in parens):
   10 summarize-all   gather + pivot table of the three attackers,
                      paper Table 1                                 (8)
 
-Runs on ``cuda`` unless ``--device cpu``. Real projector/camera hardware
-(``--hardware``) is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP.md item.
+Runs on ``cuda`` unless ``--device cpu``. ``--hardware`` drives a real
+projector and camera (``utils.procams.HardwareProCams``, from the setup's
+``setup_info.yml``) in place of the simulator; step 2 then checks the
+brightness and pose interactively, runs the sync test and captures the
+setup. It needs OpenCV, matplotlib and a camera.
 
 Usage:
   python -m spaa_tpu_torch.main --data-root data --setup-name sim_test \\
       --steps 1-10
+  python -m spaa_tpu_torch.main --hardware --data-root data \\
+      --setup-name my_object --steps 2 --cam-index 0
 """
 
 from __future__ import annotations
@@ -51,11 +55,10 @@ def parse_args(argv=None):
     ap.add_argument("--setup-name", default="sim_test")
     ap.add_argument("--steps", default="1-7")
     ap.add_argument("--hardware", action="store_true",
-                    help="real projector + camera (not ported yet)")
-    ap.add_argument("--cam-index", type=int, default=0,
-                    help="with --hardware (not ported yet)")
+                    help="use a real projector + camera (else: simulator)")
+    ap.add_argument("--cam-index", type=int, default=0)
     ap.add_argument("--prj-offset", type=int, nargs=2, default=(1920, 0),
-                    help="with --hardware (not ported yet)")
+                    help="projector window position (second display)")
     ap.add_argument("--load-pretrained", action="store_true")
     ap.add_argument("--train-iters", type=int, default=None,
                     help="debug/CI: override the model training budgets "
@@ -84,10 +87,6 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     args = parse_args(argv)
     steps = _parse_steps(args.steps)
-    if args.hardware:
-        raise NotImplementedError(
-            "real ProCams hardware is not ported yet (ROADMAP.md queue A: "
-            "HardwareProCams and the interactive capture helpers)")
 
     from spaa_tpu_torch.utils.config import (DictConfig, load_flat_yaml,
                                              save_flat_yaml)
@@ -128,24 +127,31 @@ def main(argv=None) -> None:
         d_threshes=list(args.d_threshes) if args.d_threshes else None,
         weights_dir=args.weights_dir, device=dev)
 
-    info = dict(DEFAULT_SIM_SETUP_INFO)
-    if args.sim_size:
-        pw, ph, cw, ch = (int(v) for v in args.sim_size)
-        cp = min(cw, ch)
-        info.update(prj_im_sz=[pw, ph], cam_im_sz=[cw, ch],
-                    classifier_crop_sz=[cp, cp])
-    # an existing setup_info.yml wins: the simulator must capture at the
-    # sizes every later step reads back from it
     info_path = join(setup_path, "setup_info.yml")
-    if os.path.exists(info_path):
-        existing = dict(load_flat_yaml(info_path))
-        if args.sim_size and any(list(existing.get(k, [])) != info[k]
-                                 for k in ("prj_im_sz", "cam_im_sz",
-                                           "classifier_crop_sz")):
-            print(f"WARNING: --sim-size ignored - existing {info_path} wins "
-                  "(delete the setup directory to change sizes)")
-        info = existing
-    procams = SimProCams(info)
+    if args.hardware:
+        from spaa_tpu_torch.utils.procams import HardwareProCams
+        if not os.path.exists(info_path):
+            raise SystemExit("run --steps 1 first to create setup_info.yml")
+        procams = HardwareProCams(load_flat_yaml(info_path),
+                                  cam_index=args.cam_index)
+    else:
+        info = dict(DEFAULT_SIM_SETUP_INFO)
+        if args.sim_size:
+            pw, ph, cw, ch = (int(v) for v in args.sim_size)
+            cp = min(cw, ch)
+            info.update(prj_im_sz=[pw, ph], cam_im_sz=[cw, ch],
+                        classifier_crop_sz=[cp, cp])
+        # an existing setup_info.yml wins: the simulator must capture at
+        # the sizes every later step reads back from it
+        if os.path.exists(info_path):
+            existing = dict(load_flat_yaml(info_path))
+            if args.sim_size and any(list(existing.get(k, [])) != info[k]
+                                     for k in ("prj_im_sz", "cam_im_sz",
+                                               "classifier_crop_sz")):
+                print(f"WARNING: --sim-size ignored - existing {info_path} "
+                      "wins (delete the setup directory to change sizes)")
+            info = existing
+        procams = SimProCams(info)
 
     def step(k, name):
         print(f"\n[step {k}] {name}", flush=True)
@@ -162,22 +168,39 @@ def main(argv=None) -> None:
         if os.path.exists(info_path):
             setup_info = load_flat_yaml(info_path)
             print(f"Loaded existing {info_path}")
-        else:
+        elif not args.hardware:
             setup_info = DictConfig(dict(procams.setup_info))
             save_flat_yaml(setup_info, info_path)
             print(f"Wrote simulator {info_path}")
+        else:
+            setup_info = DictConfig(dict(
+                prj_screen_sz=[800, 600], prj_im_sz=[256, 256],
+                prj_offset=list(args.prj_offset), cam_raw_sz=[640, 480],
+                cam_crop_sz=[640, 480], cam_im_sz=[320, 240],
+                classifier_crop_sz=[240, 240], prj_brightness=0.5,
+                delay_frames=10, delay_time=0.02))
+            save_flat_yaml(setup_info, info_path)
+            print(f"Wrote default {info_path} - edit knobs and re-run")
         print(dict(setup_info))
         done(1, t0)
 
-    # ---- 2. sync test, then the simulator's captures (ref main.py:52-125)
+    # ---- 2. the sync test, then the captures (ref main.py:41-125)
     if 2 in steps:
         t0 = step(2, "capture")
-        from spaa_tpu_torch.utils.procams import sync_test
-        sync_test(procams, data_root)
-        print("[sim] generating synthetic captures for the full setup")
-        n_train = int(args.num_train)
-        procams.make_setup(data_root, setup_name, num_train=n_train,
-                           num_test=max(n_train * 2 // 5, 2))
+        from spaa_tpu_torch.utils.procams import (
+            adjust_setup_brightness_and_pose, capture_setup_data, sync_test)
+        if args.hardware:
+            # interactive brightness / pose / exposure check (ref
+            # main.py:41-50)
+            adjust_setup_brightness_and_pose(procams)
+            sync_test(procams, data_root)
+            capture_setup_data(procams, data_root, setup_name)
+        else:
+            sync_test(procams, data_root)
+            print("[sim] generating synthetic captures for the full setup")
+            n_train = int(args.num_train)
+            procams.make_setup(data_root, setup_name, num_train=n_train,
+                               num_test=max(n_train * 2 // 5, 2))
         done(2, t0)
 
     # ---- 3. classifiers must agree on the clean scene (ref main.py:128-135)

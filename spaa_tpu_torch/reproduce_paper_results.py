@@ -9,8 +9,12 @@ and the cross-setup pivot table (paper Table 1 layout).
 Runs on ``cuda`` unless ``--device cpu``. The default attacker list is the
 JAX script's: SPAA and PerC-AL+CompenNet++, and with ``--sim`` One-pixel
 DE, which attacks one setup at a time through that setup's own simulator.
-``--multi-setup-train`` / ``--multi-setup-attack`` are not ported yet
-(ROADMAP.md queue A item 7) and raise before any work starts.
+``--multi-setup-train`` first fills both checkpoint caches, chunks of
+``--multi-setup-chunk`` setups spread over the visible cards
+(``parallel.multi_setup``), then forces ``--load-pretrained``;
+``--multi-setup-attack`` runs the SPAA and PerC-AL sweeps in waves of one
+setup per visible card (on one card, waves of one). One-pixel DE stays
+one setup at a time.
 
 Usage:
   python -m spaa_tpu_torch.reproduce_paper_results --sim
@@ -84,9 +88,20 @@ def parse_args(argv=None):
                     help="skip training and attacks; re-summarize existing "
                          "attack outputs")
     ap.add_argument("--multi-setup-train", action="store_true",
-                    help="not ported yet (ROADMAP.md queue A item 7)")
+                    help="train the setups' PCNets and CompenNet++s "
+                         "in chunks, a card's setups one after the other "
+                         "(parallel/multi_setup.py), before the per-setup "
+                         "pipeline, which then loads the cached "
+                         "checkpoints")
+    ap.add_argument("--multi-setup-chunk", type=int, default=None,
+                    help="setups per multi-setup training call "
+                         "(default: one per visible card)")
     ap.add_argument("--multi-setup-attack", action="store_true",
-                    help="not ported yet (ROADMAP.md queue A item 7)")
+                    help="run the SPAA and PerC-AL sweeps in waves of one "
+                         "setup per visible card "
+                         "(parallel.run_spaa_attack_multi_setup and "
+                         "run_percal_attack_multi_setup; the sequential "
+                         "driver's outputs)")
     ap.add_argument("--phase-json", default=None,
                     help="write per-phase wall-clock + the cross-setup "
                          "pivot to this JSON file")
@@ -102,10 +117,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.multi_setup_train or args.multi_setup_attack:
-        raise NotImplementedError(
-            "--multi-setup-train / --multi-setup-attack are not ported yet "
-            "(ROADMAP.md queue A item 7)")
     attackers = ["SPAA", "PerC-AL+CompenNet++"]
     if args.sim:
         attackers.append("One-pixel_DE")  # the simulator provides the loop
@@ -157,6 +168,20 @@ def main(argv=None) -> None:
                 f"No setups under {setups_dir}. Unpack the SPAA benchmark "
                 "dataset there, or run with --sim for a synthetic benchmark.")
 
+    if args.multi_setup_train and len(setup_list) > 1:
+        from spaa_tpu_torch.parallel import (
+            pretrain_compennets_pp_multi_setup, pretrain_pcnets_multi_setup)
+        from spaa_tpu_torch.train.train import get_model_train_cfg
+        for model_name, fill in (
+                ("PCNet", pretrain_pcnets_multi_setup),
+                ("CompenNet++", pretrain_compennets_pp_multi_setup)):
+            mc = get_model_train_cfg(None, data_root, setup_list)
+            mc.model_list = [model_name]
+            with plog.phase(f"multi_setup_train/{model_name}"):
+                fill(mc, chunk=args.multi_setup_chunk, device=dev)
+        # the per-setup pipelines now find every checkpoint
+        args.load_pretrained = True
+
     def _procams_for(s):
         return sim_procams.get(s, procams)
 
@@ -171,9 +196,17 @@ def main(argv=None) -> None:
             continue
         cfg = get_attacker_cfg(attacker_name, data_root, setup_list,
                                load_pretrained=args.load_pretrained)
-        with plog.phase(f"attack/{attacker_name}"):
-            run_projector_based_attack(cfg, weights_dir=args.weights_dir,
-                                       device=dev)
+        if args.multi_setup_attack and len(setup_list) > 1:
+            from spaa_tpu_torch.parallel import (
+                run_percal_attack_multi_setup, run_spaa_attack_multi_setup)
+            wave = run_spaa_attack_multi_setup if attacker_name == "SPAA" \
+                else run_percal_attack_multi_setup
+            with plog.phase(f"attack_wave/{attacker_name}"):
+                wave(cfg, weights_dir=args.weights_dir, device=dev)
+        else:
+            with plog.phase(f"attack/{attacker_name}"):
+                run_projector_based_attack(cfg, weights_dir=args.weights_dir,
+                                           device=dev)
         if procams is not None:
             with plog.phase(f"replay/{attacker_name}"):
                 for s in setup_list:
@@ -189,6 +222,8 @@ def main(argv=None) -> None:
     print(pivot)
     plog.write({"n_setups": len(setup_list), "setups": setup_list,
                 "attackers": attackers, "device": str(dev),
+                "multi_setup_train": bool(args.multi_setup_train),
+                "multi_setup_attack": bool(args.multi_setup_attack),
                 "summarize_only": bool(args.summarize_only),
                 "stats_all_rows": len(table),
                 "pivot": [dict(zip(pivot.columns, r))

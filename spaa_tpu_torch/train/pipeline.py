@@ -122,14 +122,15 @@ def _run_cfg(cfg_default, num_train: int, num_avail: int, setup_name: str,
     return cfg
 
 
-def make_pcnet_loss(model: PCNet, scene: torch.Tensor, mask: torch.Tensor):
+def make_pcnet_loss(model: PCNet, scene: torch.Tensor, mask: torch.Tensor,
+                    loss: str = "l1+ssim", curriculum_iter: int = 400):
     """PCNet's training loss ``loss_fn(prj, cam_gt, itr) -> (loss, l2)``:
-    l1+ssim against the capture, the SSIM term only after iteration 400
-    (the curriculum, ref ``train_network.py:299-303``); the scene stays
-    [1, H, W, 3]."""
+    ``loss`` (l1+ssim) against the capture, the SSIM term only after
+    iteration ``curriculum_iter`` (400: the curriculum, ref
+    ``train_network.py:299-303``); the scene stays [1, H, W, 3]."""
     def loss_fn(prj, cam_gt, itr):
-        return compute_loss(model(prj, scene, mask), cam_gt, "l1+ssim",
-                            ssim_weight=1.0 if itr > 400 else 0.0)
+        return compute_loss(model(prj, scene, mask), cam_gt, loss,
+                            ssim_weight=1.0 if itr > curriculum_iter else 0.0)
     return loss_fn
 
 

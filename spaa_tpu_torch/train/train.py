@@ -175,9 +175,11 @@ def train_model(loss_fn: Callable, model: torch.nn.Module, optimizer,
                 scheduler, train_arrays: dict, batch_idx: np.ndarray, cfg,
                 device, valid_fn: Optional[Callable] = None,
                 log_prefix: str = "", curve_logger=None,
-                resume_path: Optional[str] = None):
+                resume_path: Optional[str] = None,
+                step_losses: Optional[list] = None):
     """Train ``model`` for ``cfg.max_iters`` iterations, one optimizer step
-    each: ``loss_fn(inputs, targets, itr) -> (loss, l2)``.
+    each: ``loss_fn(inputs, targets, itr) -> (loss, l2)``. ``scheduler``
+    may be None (a constant learning rate).
 
     train_arrays: host arrays 'inputs' [N, ...] and 'targets' [N, ...]
     (uint8, or float in [0, 1]); they move to ``device`` once and each
@@ -189,7 +191,11 @@ def train_model(loss_fn: Callable, model: torch.nn.Module, optimizer,
     training continues from its iteration with its Adam moments (the
     remaining minibatches are the ones the killed run would have drawn);
     one for other data, or not of this package's layout, is discarded.
-    Removed on completion. Returns (valid_psnr, valid_rmse, valid_ssim)."""
+    Removed on completion.
+
+    ``step_losses``: if given, every iteration's ``(loss, l2)`` is appended
+    to it as a float pair, read from the device once a segment.
+    Returns (valid_psnr, valid_rmse, valid_ssim)."""
     start_it = 0
     data_fp = 0
     if resume_path is not None:
@@ -216,9 +222,10 @@ def train_model(loss_fn: Callable, model: torch.nn.Module, optimizer,
                           "discarding the stale snapshot and training from "
                           "scratch")
                 os.remove(resume_path)
-    for g, f in zip(optimizer.param_groups, scheduler.lr_lambdas):
-        g["lr"] = g["initial_lr"] * f(start_it)
-    scheduler.last_epoch = start_it
+    if scheduler is not None:
+        for g, f in zip(optimizer.param_groups, scheduler.lr_lambdas):
+            g["lr"] = g["initial_lr"] * f(start_it)
+        scheduler.last_epoch = start_it
 
     inputs = torch.as_tensor(train_arrays["inputs"]).to(device)
     targets = torch.as_tensor(train_arrays["targets"]).to(device)
@@ -230,6 +237,7 @@ def train_model(loss_fn: Callable, model: torch.nn.Module, optimizer,
     it = start_it
     model.train()
     while it < max_iters:
+        seg_losses = []
         for j in range(it, min(it + seg, max_iters)):
             x = _to_unit(inputs.index_select(0, idx_all[j])).to(dtype)
             y = _to_unit(targets.index_select(0, idx_all[j])).to(dtype)
@@ -237,7 +245,12 @@ def train_model(loss_fn: Callable, model: torch.nn.Module, optimizer,
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
             optimizer.step()
-            scheduler.step()
+            if scheduler is not None:
+                scheduler.step()
+            if step_losses is not None:
+                seg_losses.append(torch.stack([loss.detach(), l2.detach()]))
+        if step_losses is not None:
+            step_losses.extend(torch.stack(seg_losses).tolist())
         it = min(it + seg, max_iters)
         if resume_path is not None:
             L.save_train_state(resume_path, model, optimizer, it, data_fp)

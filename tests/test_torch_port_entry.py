@@ -18,9 +18,11 @@ PerC-AL+CompenNet++); both packages read one ``.pth`` made from
 - PerC-AL+CompenNet++'s layout, checkpoints and 71-column row; then
   ``reproduce_paper_results --summarize-only`` without ``--sim`` runs its
   default list (SPAA and PerC-AL);
-- what is not ported (the ``--multi-setup-*`` flags, the hardware) raises
-  ``NotImplementedError`` before any work, and both entry points default
-  to ``cuda``.
+- the flags of the paths ported last (``--multi-setup-*``, ``--hardware``)
+  parse and stop before any work where there is nothing to run them on,
+  and both entry points default to ``cuda`` (the multi-setup paths are
+  run in ``tests/test_torch_port_parallel.py``, the hardware in
+  ``tests/test_torch_port_procams_hw.py``).
 """
 
 import glob
@@ -211,18 +213,29 @@ def test_main_step_8_and_the_default_attackers_on_cpu(main_run, tmp_path):
 
 
 def test_unported_paths_raise_and_cuda_is_the_default(tmp_path):
+    """Nothing is left unported: ``--hardware`` and the ``--multi-setup-*``
+    flags parse; without a ``setup_info.yml`` the hardware path stops
+    before it opens a device, and without setups the multi-setup flags
+    stop before any work."""
     root = str(tmp_path)
+    args = TM.parse_args(["--hardware", "--cam-index", "1", "--prj-offset",
+                          "0", "0"])
+    assert args.hardware and args.cam_index == 1 and args.prj_offset == [0, 0]
+    args = TR.parse_args(["--multi-setup-train", "--multi-setup-chunk", "2",
+                          "--multi-setup-attack"])
+    assert args.multi_setup_train and args.multi_setup_attack
+    assert args.multi_setup_chunk == 2
+    assert TR.parse_args([]).multi_setup_chunk is None
     for argv in (["--hardware"], ["--hardware", "--steps", "9"]):
-        with pytest.raises(NotImplementedError, match="HardwareProCams"):
+        with pytest.raises(SystemExit, match="--steps 1 first"):
             TM.main(["--data-root", root, "--device", "cpu"] + argv)
-    for argv in (["--sim", "--multi-setup-train"],
-                 ["--attackers", "SPAA", "--multi-setup-train"],
-                 ["--sim", "--attackers", "One-pixel_DE",
-                  "--multi-setup-attack"],
+    for argv in (["--multi-setup-train"],
+                 ["--attackers", "SPAA", "--multi-setup-train",
+                  "--multi-setup-chunk", "2"],
                  ["--multi-setup-attack"]):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(SystemExit, match="No setups"):
             TR.main(["--data-root", root, "--device", "cpu"] + argv)
-    assert not os.listdir(root), "nothing may run before the raise"
+    assert not os.listdir(root), "nothing may run before the stop"
     assert TM.parse_args([]).device == TR.parse_args([]).device == "cuda"
     assert TM.parse_args(["--op-budget", "21", "1", "8", "6"]).op_budget \
         == [21, 1, 8, 6]

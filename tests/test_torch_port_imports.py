@@ -1,9 +1,8 @@
 """Port check (a): every module of ``spaa_tpu_torch`` imports without JAX,
 ``spaa_tpu``, a host package the GPU machine lacks, visdom or matplotlib,
 an entry point called without ``device`` runs on CUDA or raises where
-there is none, and what is not ported yet (the hardware ProCams, the
-multi-setup paths) raises ``NotImplementedError`` naming its ROADMAP.md
-item."""
+there is none, and the paths ported last (the hardware ProCams, the
+multi-setup paths) no longer raise ``NotImplementedError``."""
 
 import json
 import os
@@ -57,7 +56,7 @@ def test_port_imports_nothing_forbidden():
                  "attack.summarize", "main", "reproduce_paper_results",
                  "attack.perc_al", "models.compen_net", "models.init",
                  "attack.one_pixel", "digital_one_pixel_attack",
-                 "utils.vis"):
+                 "utils.vis", "parallel.mesh", "parallel.multi_setup"):
         assert "spaa_tpu_torch." + name in res["modules"], name
     assert not set(res["loaded"]) & set(FORBIDDEN), res["loaded"]
     assert not set(res["loaded"]) & set(PLOTTING), res["loaded"]
@@ -91,14 +90,16 @@ def test_entry_points_default_to_cuda(tmp_path):
 
 
 def test_unported_parts_raise_not_implemented(tmp_path):
+    """Every part is ported now: ``--hardware`` gets as far as looking for
+    the setup's ``setup_info.yml``, the multi-setup flags as far as
+    looking for setups."""
     root = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="HardwareProCams"):
+    with pytest.raises(SystemExit, match="setup_info.yml"):
         TM.main(["--data-root", root, "--device", "cpu", "--hardware"])
     for flag in ("--multi-setup-train", "--multi-setup-attack"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue A item 7"):
-            TR.main(["--data-root", root, "--device", "cpu", "--sim", flag])
-    assert not os.listdir(tmp_path), "nothing may run before the raise"
+        with pytest.raises(SystemExit, match="No setups"):
+            TR.main(["--data-root", root, "--device", "cpu", flag])
+    assert not os.listdir(tmp_path), "nothing may run before the stop"
     # PerC-AL+CompenNet++ and One-pixel DE are ported: they get as far as
     # reading the setup
     for name in ("PerC-AL+CompenNet++", "One-pixel_DE"):
