@@ -19,7 +19,8 @@ Phases, each printed on its own lines:
    call computing the same function (``F.grid_sample(align_corners=True)
    * mask`` and its input gradient), and the least time the card could
    take (bytes over 3.35 TB/s or flops over 67 TFLOP/s float32, the H100
-   SXM data-sheet rates);
+   SXM data-sheet rates); the forward's time and bound also at B = 11,
+   the bench's inference batch;
 4. main path: the SPAA sweep of one setup at full width (projector
    256x256, camera 240x320, crop 240x240, ResNet-18 at 224x224): the
    committed sim-setup fixture and PCNet checkpoint, 12 configs x 11
@@ -101,7 +102,21 @@ Phases, each printed on its own lines:
    metrics within 1e-4 (the validation images of the 200-iteration PCNet
    and CompenNet++ are linked under the 2000-iteration keys summarize
    reads), success rates printed side by side (near-ties may flip a top-k
-   between cuDNN and the CPU).
+   between cuDNN and the CPU);
+13. bench: ``python -m spaa_tpu_torch.bench`` as a child on that data
+   root (``SPAA_BENCH_DATA_ROOT``: nothing is regenerated) at a cut depth,
+   ``--reps 1`` and ``--train-iters 400`` (and its 200-iteration warm-up):
+   its JSON line must hold every key of the root ``bench.py``'s line and
+   the provenance, finite, ``warp_source`` the trained checkpoint, and
+   the warp's launches of its sweeps (50 + 50 each: one untimed and one
+   timed per classifier) and inference chain (20 forwards, 4 times),
+   counted into the kernels line;
+14. bf16: the ResNet-18 sweep of step 11 again with ``attack_dtype``
+   bfloat16 (the shading CNN and the classifier; the warp stays float32):
+   s/config, ms/iteration, 264 PNGs, finite outputs in [0, 1], 50 + 50
+   launches, and the top-1 agreement of its camera images with the
+   float32 sweep's under the float32 ResNet-18 (printed, not gated:
+   bfloat16 is opt-in).
 
 Before the last line it prints the kernels as one JSON object and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -144,6 +159,8 @@ COMPEN_ITERS = 200            # CompenNet++ training budget of the smoke
 COMPEN_PSNR_FLOOR = 18.0
 STEADY_WARMUP, STEADY_STEPS = 3, 10   # re-timed training iterations
 MULTI_CHECK_ITERS = 6         # multi-setup vs sequential training, [multisetup]
+BENCH_REPS = 1                # [bench]: timed sweeps of the 3 classifiers
+BENCH_TRAIN_ITERS = 400       # [bench]: end-to-end training iterations
 
 
 def log(msg):
@@ -376,6 +393,24 @@ def phase_kernels(trained, dev, batch):
             f"bound")
     log(f"[kernels] library grid_sample*mask vs plain: fwd "
         f"{err_lib_f:.3e}, input grad {err_lib_b:.3e}")
+    # the bench's inference chain launches the forward at B = 11
+    x11 = x[:11].contiguous()
+    check_kernel(warp, x11, dout[:11].contiguous(), "main grid")
+    x11_nchw = x11.permute(0, 3, 1, 2).contiguous()
+    grid11 = cache.fine_grid.expand(11, -1, -1, -1)
+    b11 = warp_bounds(warp, 11, 3)["fwd"]
+    with torch.no_grad():
+        med, lo, hi = cuda_ms(lambda: W.warp_forward(warp, x11))
+        plain11 = cuda_ms(lambda: W.warp_forward_plain(warp, x11),
+                          launches=3, runs=3)[0]
+        lib11 = cuda_ms(lambda: F.grid_sample(
+            x11_nchw, grid11, mode="bilinear", padding_mode="zeros",
+            align_corners=True) * mask)[0]
+    log(f"[kernels] fixed_warp_fwd at B=11 (the bench's inference batch): "
+        f"kernel={med:.4f} ms (min {lo:.4f}, max {hi:.4f}) "
+        f"plain={plain11:.4f} ms library={lib11:.4f} ms "
+        f"bound={b11['bound_ms']:.4f} ms ({b11['bound_by']}: {b11['bytes']} "
+        f"B) -> {100 * b11['bound_ms'] / med:.1f}% of bound")
     del lib_out
     rows = []
     for k, err in (("fwd", err_f), ("bwd", err_b)):
@@ -404,7 +439,9 @@ def steady_ms_per_iter(cfg, pcnet_apply, clf, cam_scene, target_idx,
     def tt(a, dtype=torch.float32):
         return torch.from_numpy(a).to(dev, dtype)
 
-    args = (pcnet_apply, O.make_attack_logits_fn(clf, cp_sz), cam_scene,
+    args = (pcnet_apply,
+            O.make_attack_logits_fn(clf, cp_sz, cfg.get("attack_dtype")),
+            cam_scene,
             tt(prj_init), tt(tgt, torch.long), tt(targeted, torch.bool),
             tt(w), tt(dt), scfg._replace(iters=iters))
     torch.cuda.synchronize()
@@ -634,9 +671,10 @@ def phase_train(data_root, dev):
                 peak_bytes=peak, psnr=psnr, psnr0=psnr0)
 
 
-def phase_attack(data_root, dev, classifier):
+def phase_attack(data_root, dev, classifier, attack_dtype=None, tag="main"):
     """run_projector_based_attack with load_pretrained on the trained
-    checkpoint: one classifier's full sweep; the sweep itself is timed
+    checkpoint: one classifier's full sweep (``attack_dtype``: the
+    config's compute type, float32 if None); the sweep itself is timed
     and its outputs checked through a wrapper of ``_run_spaa_sweep``."""
     import torch
     from spaa_tpu_torch.attack import orchestrate as O
@@ -647,6 +685,8 @@ def phase_attack(data_root, dev, classifier):
     cfg.classifier_names = [classifier]
     cfg.attack_iters = ITERS
     cfg.max_iters = TRAIN_ITERS
+    if attack_dtype is not None:
+        cfg.attack_dtype = attack_dtype
     n_cfg = len(cfg.stealth_losses) * len(cfg.d_threshes)
     seen = {}
     orig = O._run_spaa_sweep
@@ -682,11 +722,13 @@ def phase_attack(data_root, dev, classifier):
            else "deterministic init, seed 0")
 
     (cam_scene, target_idx, true_idx, info) = seen["args"][:4]
-    ms_iter = steady_ms_per_iter(cfg, O.make_pcnet_fn(seen["trained"]), clf,
-                                 cam_scene, target_idx, true_idx, info, dev)
+    ms_iter = steady_ms_per_iter(
+        cfg, O.make_pcnet_fn(seen["trained"], cfg.get("attack_dtype")), clf,
+        cam_scene, target_idx, true_idx, info, dev)
     b = 11 * n_cfg
-    log(f"[main] {classifier} ({src}, input {clf.input_sz[0]}x"
-        f"{clf.input_sz[1]}): sweep {wall:.3f} s wall ({wall / n_cfg:.3f} "
+    log(f"[{tag}] {classifier} ({src}, input {clf.input_sz[0]}x"
+        f"{clf.input_sz[1]}, {cfg.get('attack_dtype', 'float32')}): "
+        f"sweep {wall:.3f} s wall ({wall / n_cfg:.3f} "
         f"s/config) for {cam_best.shape[0]} images x {ITERS} iterations; "
         f"steady state {ms_iter:.2f} ms/iteration; peak memory "
         f"{seen['peak'] / 2**30:.3f} GiB; {n_png} PNGs; outputs finite and "
@@ -704,7 +746,8 @@ def phase_attack(data_root, dev, classifier):
             raise AssertionError(f"{k} launched {launches[k]} times in the "
                                  f"{classifier} sweep, expected {ITERS}")
     return dict(wall_s=wall, s_per_config=wall / n_cfg, ms_per_iter=ms_iter,
-                peak_bytes=seen["peak"], launches=launches)
+                peak_bytes=seen["peak"], launches=launches,
+                cam_best=cam_best, clf=clf, cp_sz=info["classifier_crop_sz"])
 
 
 def steady_train_ms(loss_fn, opt, sched, x_all, y_all, batch, dev, itr=0):
@@ -1504,13 +1547,15 @@ def onepixel_card_vs_cpu(data_root, dev, sim):
         raise AssertionError(f"card and CPU probabilities differ by {err}")
 
 
-def run_child(args, what, timeout=900, tag="pipeline"):
-    """Run ``python -m <args>`` from the checkout; echo its output; fail on
-    a non-zero exit. Returns the output lines."""
+def run_child(args, what, timeout=900, tag="pipeline", env=None):
+    """Run ``python -m <args>`` from the checkout, with ``env`` added to
+    the environment; echo its output; fail on a non-zero exit. Returns
+    the output lines."""
     t0 = time.time()
     proc = subprocess.run([sys.executable, "-m", *args], cwd=REPO,
                           capture_output=True, text=True, timeout=timeout,
-                          env={**os.environ, "PYTHONPATH": REPO})
+                          env={**os.environ, "PYTHONPATH": REPO,
+                               **(env or {})})
     lines = (proc.stdout + proc.stderr).splitlines()
     for line in lines:
         log(f"[{tag}]   | {line[:300]}")
@@ -1697,6 +1742,78 @@ def phase_pipeline(sim_root, dev):
         f"{12 * len(rates)}")
 
 
+# the root bench.py's keys (bench.py:552-569) and the port's provenance
+BENCH_NUMBERS = ("pcnet_infer_fps", "pcnet_train_iters_per_s",
+                 "pcnet_train_2000it_s", "pcnet_train_e2e_s",
+                 "train_data_upload_s", "summarize_spaa_s_per_setup",
+                 "sweep_wallclock_s", "power_limit_w")
+BENCH_WORDS = ("warp_source", "clf_weights_source", "device", "attack_dtype")
+
+
+def phase_bench(sim_root):
+    """``python -m spaa_tpu_torch.bench`` on the trained setup at a cut
+    depth: every key finite, the trained checkpoint's warp, and the warp's
+    launches of its sweeps and inference chain."""
+    from spaa_tpu_torch import bench as BN
+    log(f"[bench] cut depth: --reps {BENCH_REPS} (of {BN.REPS}), "
+        f"--train-iters {BENCH_TRAIN_ITERS} (of 2000) after a 200-iteration "
+        f"warm-up; everything else at the bench's defaults")
+    lines = run_child(["spaa_tpu_torch.bench", "--reps", str(BENCH_REPS),
+                       "--train-iters", str(BENCH_TRAIN_ITERS)],
+                      "python -m spaa_tpu_torch.bench", tag="bench",
+                      env={"SPAA_BENCH_DATA_ROOT": dirname(sim_root)})
+    rec = json.loads(_grep(lines, r'^(\{"metric".*)$')[-1].group(1))
+    extra = rec["extra"]
+    numbers = [rec["value"], rec["vs_baseline"]] + [
+        extra.get(k) for k in BENCH_NUMBERS]
+    if not all(isinstance(v, (int, float)) and math.isfinite(v)
+               for v in numbers) or \
+            not all(isinstance(extra.get(k), str) for k in BENCH_WORDS):
+        raise AssertionError(f"bench line lacks a key or a finite value: "
+                             f"{rec}")
+    if extra["warp_source"] != "trained_ckpt" or \
+            extra["train_e2e_iters"] != BENCH_TRAIN_ITERS:
+        raise AssertionError(f"bench ran on {extra['warp_source']}, "
+                             f"{extra['train_e2e_iters']} iterations")
+    sweeps = (1 + BENCH_REPS) * len(BN.CLASSIFIERS)
+    want = {"fixed_warp_fwd": sweeps * BN.ATTACK_ITERS
+            + (1 + BN.INFER_REPS) * BN.INFER_CHAIN,
+            "fixed_warp_bwd": sweeps * BN.ATTACK_ITERS}
+    if extra["warp_launches"] != want:
+        raise AssertionError(f"bench launches {extra['warp_launches']}, "
+                             f"expected {want}")
+    return dict(launches=extra["warp_launches"], record=rec)
+
+
+def phase_bf16(sim_root, dev, f32):
+    """The ResNet-18 sweep in bfloat16 on the trained setup (its earlier
+    PNGs removed first), then the top-1 agreement of its camera images
+    with the float32 sweep's ``f32`` under the float32 classifier."""
+    import torch
+    from spaa_tpu_torch.attack import orchestrate as O
+    setup = join(sim_root, "setups", "sim_setup")
+    cfg_str = O.to_attacker_cfg_str("SPAA")[0]
+    for sub in ("prj/adv", "cam/infer/adv"):
+        for d, _, _ in list(os.walk(join(setup, sub, cfg_str))):
+            if os.path.basename(d) == "resnet18":
+                shutil.rmtree(d)
+    if count_pngs(setup, "resnet18", cfg_str):
+        raise AssertionError("the float32 ResNet-18 PNGs were not removed")
+    res = phase_attack(sim_root, dev, "resnet18", attack_dtype="bfloat16",
+                       tag="bf16")
+    clf, cp_sz = f32["clf"], tuple(int(v) for v in f32["cp_sz"])
+    top1 = [clf(r["cam_best"], cp_sz)[0].argmax(1)
+            for r in (f32, res)]
+    agree = float((top1[0] == top1[1]).float().mean())
+    log(f"[bf16] ResNet-18 sweep: bfloat16 {res['s_per_config']:.3f} "
+        f"s/config ({res['ms_per_iter']:.2f} ms/iteration) vs float32 "
+        f"{f32['s_per_config']:.3f} s/config ({f32['ms_per_iter']:.2f} "
+        f"ms/iteration); top-1 of the {len(top1[0])} camera images under "
+        f"the float32 ResNet-18 agrees for {agree:.4f} of them "
+        f"(a finding, not a gate)")
+    return dict(res, top1_agreement=agree)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1736,9 +1853,12 @@ def main():
         sweeps = [res] + [phase_attack(sim_root, dev, name)
                           for name in ("resnet18", "vgg16", "inception_v3")]
         phase_pipeline(sim_root, dev)
+        bench = phase_bench(sim_root)
+        sweeps.append(phase_bf16(sim_root, dev, sweeps[1]))
     for r in rows:
         r["launches"] = sum(sw["launches"][r["name"]] for sw in sweeps) + \
-            multi["waves"]["SPAA"]["launches"][r["name"]]
+            multi["waves"]["SPAA"]["launches"][r["name"]] + \
+            bench["launches"][r["name"]]
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -26,19 +26,29 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 # launches of each kernel since the last reset_launch_counts(): incremented
-# by the wrappers right where they launch, nowhere else
+# by the wrappers right where they launch, nowhere else. One lock guards
+# every write: the multi-setup paths launch from one host thread per card.
 LAUNCHES = {"fixed_warp_fwd": 0, "fixed_warp_bwd": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to :data:`LAUNCHES`."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _bilinear_requests(grid_np: np.ndarray, src_hw: Tuple[int, int]):
@@ -410,7 +420,7 @@ def _launch(name: str, table: GatherTable, x: torch.Tensor,
                 table.rows, n, c, x[0].numel(), out[0].numel(), plane,
                 b.stage_px, stream)
     _check(lib, rc, "kernel launch")
-    LAUNCHES[name] += 1
+    count_launch(name)
     return out
 
 

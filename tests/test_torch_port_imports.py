@@ -1,9 +1,11 @@
 """Port check (a): every module of ``spaa_tpu_torch`` imports without JAX,
 ``spaa_tpu``, a host package the GPU machine lacks, visdom or matplotlib,
+the bench and its two tools import none of them anywhere in their code,
 an entry point called without ``device`` runs on CUDA or raises where
 there is none, and the paths ported last (the hardware ProCams, the
 multi-setup paths) no longer raise ``NotImplementedError``."""
 
+import ast
 import json
 import os
 import pkgutil
@@ -56,10 +58,33 @@ def test_port_imports_nothing_forbidden():
                  "attack.summarize", "main", "reproduce_paper_results",
                  "attack.perc_al", "models.compen_net", "models.init",
                  "attack.one_pixel", "digital_one_pixel_attack",
-                 "utils.vis", "parallel.mesh", "parallel.multi_setup"):
+                 "utils.vis", "parallel.mesh", "parallel.multi_setup",
+                 "bench"):
         assert "spaa_tpu_torch." + name in res["modules"], name
     assert not set(res["loaded"]) & set(FORBIDDEN), res["loaded"]
     assert not set(res["loaded"]) & set(PLOTTING), res["loaded"]
+
+
+def _imported(path):
+    """Every module a file imports, at top level or inside a function."""
+    names = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", ["spaa_tpu_torch/bench.py",
+                                  "tools/torch_make_bench_ckpt.py",
+                                  "tools/torch_bf16_equiv_check.py"])
+def test_bench_and_tools_import_nothing_forbidden(path):
+    names = _imported(os.path.join(REPO, path))
+    assert "spaa_tpu_torch.bench" in names or path.endswith("bench.py")
+    bad = {n for n in names
+           if n.split(".")[0] in FORBIDDEN + PLOTTING}
+    assert not bad, bad
 
 
 def test_entry_points_default_to_cuda(tmp_path):

@@ -8,8 +8,12 @@ weights); float32 warps sum the same four taps in a different order
 (Pallas: spill rows) so they agree to 2e-6; float64 runs agree to 1e-12.
 The kernel's band tables are decoded back to the CSR tables exactly. The
 CUDA kernel itself is checked on the card (marker ``cuda``): max-abs 1e-5
-against the plain version, float32 sums in another order.
+against the plain version, float32 sums in another order. The launch
+counter loses no increment under host threads.
 """
+
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -253,6 +257,39 @@ def test_warp_output_is_nchw_memory_and_rejects_wrong_size():
     assert out.permute(0, 3, 1, 2).is_contiguous()
     with pytest.raises(ValueError):
         W.fixed_warp_apply(warp, torch.zeros(1, 16, 16, 3))
+
+
+def test_launch_counter_loses_no_increment_under_threads():
+    """8 host threads x 10,000 increments through ``count_launch`` (the
+    multi-setup paths launch from one host thread per card) count
+    exactly 80,000. The key hashes in Python and the switch interval is
+    shortened, so that an unlocked ``+=`` can lose the interpreter lock
+    between its read and its write."""
+    class Key(str):
+        def __hash__(self):
+            return str.__hash__(self)
+
+    key = Key("fixed_warp_bwd")
+
+    def work():
+        for _ in range(10_000):
+            W.count_launch(key)
+
+    W.reset_launch_counts()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert W.LAUNCHES == {"fixed_warp_fwd": 0, "fixed_warp_bwd": 80_000}
+    W.reset_launch_counts()
+    assert W.LAUNCHES == {"fixed_warp_fwd": 0, "fixed_warp_bwd": 0}
 
 
 @pytest.mark.cuda

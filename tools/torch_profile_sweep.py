@@ -20,6 +20,12 @@ float32) and reports, after two warm-up iterations:
 ``--cudnn-benchmark`` lets cuDNN time its algorithms per convolution shape
 (``torch.backends.cudnn.benchmark = True``) instead of picking them by
 heuristic, for comparing the two in one call.
+
+``--infer`` profiles the frozen PCNet's forward alone, without a graph, as
+``python -m spaa_tpu_torch.bench`` times it for ``pcnet_infer_fps``
+(11 images) and at the sweep's 132: ms per forward (CUDA events, median
+of 5) with cuDNN's heuristic and then with benchmark mode, and the top
+kernels of 5 forwards at 11 images under each.
 """
 
 import argparse
@@ -52,6 +58,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--cudnn-benchmark", action="store_true")
+    ap.add_argument("--infer", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -82,6 +89,8 @@ def main():
     cp_sz = tuple(int(v) for v in info["classifier_crop_sz"])
     clf = Classifier("resnet18", join(REPO, "checkpoint"), device=dev)
     pcnet_apply = O.make_pcnet_fn(trained)
+    if args.infer:
+        return profile_infer(pcnet_apply, dev)
     logits_fn = O.make_attack_logits_fn(clf, cp_sz)
     (_, _, prj_init, tgt, targeted, w, dt,
      scfg) = O.build_spaa_sweep_arrays(cfg, info, list(range(10)), 500)
@@ -175,6 +184,50 @@ def main():
         print(f"[profile] {e.self_device_time_total / 1e3 / args.iters:9.3f} "
               f"ms/iter {100 * e.self_device_time_total / dev_total:5.1f}% "
               f"x{e.count // args.iters:<4d} {e.key[:110]}")
+
+
+def top_kernels(prof, n_calls, what, top=12):
+    """Print the profiler's device time by kernel, per call of the
+    profiled function."""
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    total = sum(e.self_device_time_total for e in kernels)
+    if total <= 0:
+        print(f"[profile] {what}: the profiler recorded no device time")
+        return
+    print(f"[profile] {what}: kernel time {total / 1e3 / n_calls:.3f} ms "
+          f"per forward")
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    for e in kernels[:top]:
+        print(f"[profile]   {e.self_device_time_total / 1e3 / n_calls:9.3f} "
+              f"ms {100 * e.self_device_time_total / total:5.1f}% "
+              f"x{e.count // n_calls:<4d} {e.key[:110]}")
+
+
+def profile_infer(pcnet_apply, dev, batches=(11, 132), n=5):
+    """The frozen PCNet forward without a graph: ms per forward at each
+    batch, first on cuDNN's heuristic, then in benchmark mode, and the
+    top kernels of ``n`` forwards at the first batch under each."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prj = {b: torch.from_numpy(np.random.default_rng(2).random(
+        (b, 256, 256, 3), np.float32)).to(dev) for b in batches}
+    with torch.no_grad():
+        for mode in (False, True):
+            torch.backends.cudnn.benchmark = mode
+            for b in batches:
+                ms = cuda_ms(lambda: pcnet_apply(prj[b]))
+                print(f"[profile] infer cudnn.benchmark={mode} B={b}: "
+                      f"{ms:.3f} ms a forward, {1e3 * b / ms:.1f} images/s")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    pcnet_apply(prj[batches[0]])
+                torch.cuda.synchronize()
+            top_kernels(prof, n, f"infer cudnn.benchmark={mode} "
+                                 f"B={batches[0]}")
 
 
 if __name__ == "__main__":
