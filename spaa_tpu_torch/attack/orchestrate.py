@@ -38,6 +38,7 @@ from spaa_tpu_torch.train.data import load_setup_info
 from spaa_tpu_torch.train.pipeline import (train_eval_compennet_pp,
                                            train_eval_pcnet)
 from spaa_tpu_torch.train.train import get_model_train_cfg
+from spaa_tpu_torch.utils import trace
 from spaa_tpu_torch.utils.config import DictConfig
 from spaa_tpu_torch.utils.device import resolve_device
 from spaa_tpu_torch.utils.io import imread, save_imgs
@@ -169,9 +170,10 @@ def make_pcnet_fn(trained, compute_dtype: Optional[str] = None):
     def pcnet_apply(prj: torch.Tensor) -> torch.Tensor:
         # the scene stays [1, H, W, 3]: ShadingNet runs its scene-only
         # chain once and broadcasts at the final add
-        warped = fixed_warp_apply(warp, prj).to(cdtype)
-        return model(prj, scene, mask, cache=cache,
-                     warped=warped).to(prj.dtype)
+        with trace.span("pcnet.forward"):
+            warped = fixed_warp_apply(warp, prj).to(cdtype)
+            return model(prj, scene, mask, cache=cache,
+                         warped=warped).to(prj.dtype)
 
     return pcnet_apply
 
@@ -189,7 +191,8 @@ def make_attack_logits_fn(classifier: Classifier, cp_sz,
     inner = make_logits_fn(net, cp_sz)
 
     def logits_fn(im: torch.Tensor) -> torch.Tensor:
-        return inner(im.to(cdtype)).to(im.dtype)
+        with trace.span("classifier.forward"):
+            return inner(im.to(cdtype)).to(im.dtype)
 
     return logits_fn
 

@@ -21,6 +21,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from spaa_tpu_torch.ops.color import ciede2000_diff, rgb2lab_diff
+from spaa_tpu_torch.utils import trace
 
 
 class SpaaConfig(NamedTuple):
@@ -74,30 +75,32 @@ def _spaa_body(pcnet_apply, logits_fn, cam_scene, state, im_gray,
     c = cam_infer.detach().requires_grad_(True)
 
     raw = logits_fn(c)
-    adv_raw_cot = torch.zeros_like(raw)
-    adv_raw_cot[arange_b, target_idx] = cfg.adv_w * tgt_sign / b
-    g_adv_cam, = torch.autograd.grad(raw, c, adv_raw_cot)
+    with trace.span("spaa.classifier_vjp"):
+        adv_raw_cot = torch.zeros_like(raw)
+        adv_raw_cot[arange_b, target_idx] = cfg.adv_w * tgt_sign / b
+        g_adv_cam, = torch.autograd.grad(raw, c, adv_raw_cot)
 
     # colour losses through the camera image: caml2 on the whole batch (it
     # also feeds mask_high_pert), camdE only on the camdE-active slice
-    lo, hi = cfg.camde_range if cfg.camde_range is not None else (0, b)
-    caml2 = _per_sample_l2(cam_scene_b - c)
-    camde = torch.zeros(b, dtype=c.dtype, device=c.device)
-    if hi > lo:
-        scene_lab = rgb2lab_diff(cam_scene)
-        sub_lab = scene_lab.expand(hi - lo, *scene_lab.shape[1:])
-        camde_sub = torch.mean(ciede2000_diff(rgb2lab_diff(c[lo:hi]), sub_lab),
-                               dim=(1, 2))
-        camde = torch.cat([camde[:lo], camde_sub, camde[hi:]])
-    col_cam_batch = weights[:, 1] * caml2 + weights[:, 2] * camde
-    g_col_cam, = torch.autograd.grad(torch.mean(col_cam_batch), c)
+    with trace.span("spaa.colour"):
+        lo, hi = cfg.camde_range if cfg.camde_range is not None else (0, b)
+        caml2 = _per_sample_l2(cam_scene_b - c)
+        camde = torch.zeros(b, dtype=c.dtype, device=c.device)
+        if hi > lo:
+            scene_lab = rgb2lab_diff(cam_scene)
+            sub_lab = scene_lab.expand(hi - lo, *scene_lab.shape[1:])
+            camde_sub = torch.mean(
+                ciede2000_diff(rgb2lab_diff(c[lo:hi]), sub_lab), dim=(1, 2))
+            camde = torch.cat([camde[:lo], camde_sub, camde[hi:]])
+        col_cam_batch = weights[:, 1] * caml2 + weights[:, 2] * camde
+        g_col_cam, = torch.autograd.grad(torch.mean(col_cam_batch), c)
 
-    # prjl2 flows directly from prj_adv, not through PCNet
-    p2 = prj_adv.detach().requires_grad_(True)
-    g_prjl2, = torch.autograd.grad(
-        torch.mean(weights[:, 0] * _per_sample_l2(im_gray - p2)), p2)
+        # prjl2 flows directly from prj_adv, not through PCNet
+        p2 = prj_adv.detach().requires_grad_(True)
+        g_prjl2, = torch.autograd.grad(
+            torch.mean(weights[:, 0] * _per_sample_l2(im_gray - p2)), p2)
 
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("spaa.masks"):
         prjl2 = _per_sample_l2(im_gray - prj_adv)
         col_batch = weights[:, 0] * prjl2 + col_cam_batch.detach()
         caml2 = caml2.detach()
@@ -117,9 +120,10 @@ def _spaa_body(pcnet_apply, logits_fn, cam_scene, state, im_gray,
         cot_cam = torch.where(m, g_col_cam, g_adv_cam)
 
     # ONE PCNet pullback on the per-sample-selected camera cotangent
-    g_prj, = torch.autograd.grad(cam_infer, prj, cot_cam)
+    with trace.span("spaa.pcnet_pullback"):
+        g_prj, = torch.autograd.grad(cam_infer, prj, cot_cam)
 
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("spaa.update"):
         total = g_prj + torch.where(m, g_prjl2, torch.zeros_like(g_prjl2))
         lr = torch.where(m, cfg.col_lr, cfg.adv_lr).to(total.dtype)
         prj_adv = prj_adv - lr * _normalized(total)
@@ -146,10 +150,12 @@ def spaa_attack_batched(pcnet_apply: Callable, logits_fn: Callable,
              cam_scene.expand(b, *cam_scene.shape[1:]).contiguous(),
              torch.full((b,), 1e6, dtype=prj_init.dtype,
                         device=prj_init.device))
-    for _ in range(cfg.iters):
-        state = _spaa_body(pcnet_apply, logits_fn, cam_scene, state,
-                           prj_init, target_idx, targeted, weights, d_thr,
-                           cfg)
+    with trace.span("spaa.sweep", annotate=False):
+        for _ in range(cfg.iters):
+            with trace.span("spaa.iteration", annotate=False):
+                state = _spaa_body(pcnet_apply, logits_fn, cam_scene, state,
+                                   prj_init, target_idx, targeted, weights,
+                                   d_thr, cfg)
     _, prj_best, cam_best, _ = state
     return cam_best, torch.clamp(prj_best, 0.0, 1.0)
 

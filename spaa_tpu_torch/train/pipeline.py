@@ -35,6 +35,7 @@ from spaa_tpu_torch.train.train import (compute_loss, get_model_train_cfg,
                                         make_evaluator, make_pcnet_optimizer,
                                         sample_batch_indices, train_model)
 from spaa_tpu_torch.utils import log as L
+from spaa_tpu_torch.utils import trace
 from spaa_tpu_torch.utils import vis
 from spaa_tpu_torch.utils.device import resolve_device
 from spaa_tpu_torch.utils.io import imread_dir, save_imgs
@@ -129,8 +130,11 @@ def make_pcnet_loss(model: PCNet, scene: torch.Tensor, mask: torch.Tensor,
     iteration ``curriculum_iter`` (400: the curriculum, ref
     ``train_network.py:299-303``); the scene stays [1, H, W, 3]."""
     def loss_fn(prj, cam_gt, itr):
-        return compute_loss(model(prj, scene, mask), cam_gt, loss,
-                            ssim_weight=1.0 if itr > curriculum_iter else 0.0)
+        with trace.span("train.pcnet_fwd"):
+            infer = model(prj, scene, mask)
+        with trace.span("train.loss"):
+            return compute_loss(infer, cam_gt, loss, ssim_weight=1.0
+                                if itr > curriculum_iter else 0.0)
     return loss_fn
 
 

@@ -30,6 +30,7 @@ import torch
 from spaa_tpu_torch.ops import metrics as M
 from spaa_tpu_torch.ops.ssim import ssim as ssim_fn
 from spaa_tpu_torch.utils import log as L
+from spaa_tpu_torch.utils import trace
 from spaa_tpu_torch.utils.config import DictConfig
 
 
@@ -239,34 +240,44 @@ def train_model(loss_fn: Callable, model: torch.nn.Module, optimizer,
     while it < max_iters:
         seg_losses = []
         for j in range(it, min(it + seg, max_iters)):
-            x = _to_unit(inputs.index_select(0, idx_all[j])).to(dtype)
-            y = _to_unit(targets.index_select(0, idx_all[j])).to(dtype)
-            loss, l2 = loss_fn(x, y, j)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            optimizer.step()
-            if scheduler is not None:
-                scheduler.step()
-            if step_losses is not None:
-                seg_losses.append(torch.stack([loss.detach(), l2.detach()]))
-        if step_losses is not None:
-            step_losses.extend(torch.stack(seg_losses).tolist())
+            with trace.span("train.iteration", request=j, annotate=False):
+                with trace.span("train.gather"):
+                    x = _to_unit(inputs.index_select(0, idx_all[j])).to(dtype)
+                    y = _to_unit(targets.index_select(0, idx_all[j])).to(dtype)
+                loss, l2 = loss_fn(x, y, j)
+                # set_to_none frees the gradients the backward then writes
+                with trace.span("train.backward"):
+                    optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                with trace.span("train.optimizer"):
+                    optimizer.step()
+                    if scheduler is not None:
+                        scheduler.step()
+                if step_losses is not None:
+                    seg_losses.append(torch.stack([loss.detach(),
+                                                   l2.detach()]))
         it = min(it + seg, max_iters)
-        if resume_path is not None:
-            L.save_train_state(resume_path, model, optimizer, it, data_fp)
-        if valid_fn is not None:
-            valid_psnr, valid_rmse, valid_ssim, _ = valid_fn()
-        loss_v = loss.item()
-        rmse_v = math.sqrt(l2.item() * 3)
-        lapse = time.strftime("%H:%M:%S", time.gmtime(time.time() - start))
-        print(f"{log_prefix}Iter:{it:5d} | Time: {lapse} | "
-              f"Train Loss: {loss_v:.4f} | Train RMSE: {rmse_v:.4f} | "
-              f"Valid PSNR: {valid_psnr:2.4f} | Valid RMSE: {valid_rmse:.4f} "
-              f"| Valid SSIM: {valid_ssim:.4f} |")
-        if curve_logger is not None:
-            curve_logger.append(it, train_loss=loss_v, train_rmse=rmse_v,
-                                valid_psnr=valid_psnr, valid_rmse=valid_rmse,
-                                valid_ssim=valid_ssim)
+        with trace.span("train.segment_end", request=it, annotate=False):
+            if step_losses is not None:
+                step_losses.extend(torch.stack(seg_losses).tolist())
+            if resume_path is not None:
+                L.save_train_state(resume_path, model, optimizer, it, data_fp)
+            if valid_fn is not None:
+                with trace.span("train.validation", annotate=False):
+                    valid_psnr, valid_rmse, valid_ssim, _ = valid_fn()
+            loss_v = loss.item()
+            rmse_v = math.sqrt(l2.item() * 3)
+            lapse = time.strftime("%H:%M:%S",
+                                  time.gmtime(time.time() - start))
+            print(f"{log_prefix}Iter:{it:5d} | Time: {lapse} | "
+                  f"Train Loss: {loss_v:.4f} | Train RMSE: {rmse_v:.4f} | "
+                  f"Valid PSNR: {valid_psnr:2.4f} | Valid RMSE: "
+                  f"{valid_rmse:.4f} | Valid SSIM: {valid_ssim:.4f} |")
+            if curve_logger is not None:
+                curve_logger.append(it, train_loss=loss_v, train_rmse=rmse_v,
+                                    valid_psnr=valid_psnr,
+                                    valid_rmse=valid_rmse,
+                                    valid_ssim=valid_ssim)
     model.eval()
     if resume_path is not None and os.path.exists(resume_path):
         os.remove(resume_path)     # completed: the checkpoint supersedes it
@@ -292,12 +303,13 @@ def make_evaluator(apply_fn: Callable, valid_inputs, valid_targets, device,
         infers = []
         psnr = rmse = ssim_v = 0.0
         for idx in chunks:
-            x = _to_unit(v_in[idx[0]:idx[-1] + 1])
-            gt = _to_unit(v_gt[idx[0]:idx[-1] + 1])
-            infer = apply_fn(x)
-            if return_images:
-                infers.append(infer.cpu().numpy())
-            p, r, s = (float(v) for v in M.psnr_rmse_ssim(infer, gt))
+            with trace.span("valid.chunk"):
+                x = _to_unit(v_in[idx[0]:idx[-1] + 1])
+                gt = _to_unit(v_gt[idx[0]:idx[-1] + 1])
+                infer = apply_fn(x)
+                if return_images:
+                    infers.append(infer.cpu().numpy())
+                p, r, s = (float(v) for v in M.psnr_rmse_ssim(infer, gt))
             frac = len(idx) / n
             psnr += p * frac
             rmse += r * frac
