@@ -21,16 +21,24 @@ Phases, each printed on its own lines:
    take (bytes over 3.35 TB/s or flops over 67 TFLOP/s float32, the H100
    SXM data-sheet rates); the forward's time and bound also at B = 11,
    the bench's inference batch;
-4. main path: the SPAA sweep of one setup at full width (projector
+4. conv_route: the routes of ShadingNetSPAA's stride-1 3x3 convolutions
+   (``ops/conv.py``), timed at first use of each key: one forward of the
+   attack's PCNet at B = 132 and one of the model at training's B = 24 fill
+   the table; per key both routes' median times and rates, the routes
+   against each other (within 1e-5), the routed backward against
+   ``F.conv2d``'s, and the kernels of each route and of the input-gradient
+   problem the transposed route poses; the main path's sweep then prints
+   its calls on each route;
+5. main path: the SPAA sweep of one setup at full width (projector
    256x256, camera 240x320, crop 240x240, ResNet-18 at 224x224): the
    committed sim-setup fixture and PCNet checkpoint, 12 configs x 11
    samples = 132 images, 50 iterations, float32, 264 PNGs written; launch
    counts of every kernel in that run, wall-clock, peak memory, output
    checks, and the card's PCNet forward against the CPU's on 2 images;
-5. sim: the port's own ``SimProCams`` (seed 7) writes the benchmark-size
+6. sim: the port's own ``SimProCams`` (seed 7) writes the benchmark-size
    setup (500 training and 200 validation pairs) in a second data root:
    host time; mask and corners equal the committed fixture's;
-6. train: ``train_eval_pcnet`` on that setup at full width (batch 24),
+7. train: ``train_eval_pcnet`` on that setup at full width (batch 24),
    the default config but ``max_iters`` 200 and ``valid_rate`` 100:
    ms per training iteration (steady state, re-timed), the loss at the
    first and last segment, the final validation PSNR/RMSE/SSIM against
@@ -39,7 +47,7 @@ Phases, each printed on its own lines:
    deterministic kernels: with the default ones, rounding that differs
    from run to run sends some runs into a mode that stays near 22 dB, so
    only a run that repeats bit for bit can be held to the floor;
-7. compennet: ``train_eval_compennet_pp`` on that setup at full width,
+8. compennet: ``train_eval_compennet_pp`` on that setup at full width,
    on deterministic kernels like ``[train]``: CompenNet's one-time
    pre-training at its default 500 iterations (batch 48), then CompenNet++
    at ``max_iters`` 200 (batch 24, ``valid_rate`` 100): the pre-training's
@@ -47,7 +55,7 @@ Phases, each printed on its own lines:
    CompenNet++'s and a floor, peak memory; the port's loader reads the
    checkpoint back; then each model's iteration re-timed on the default
    kernels (ms, steady state);
-8. multisetup: a data root of two setups (a copy of ``sim_setup`` and
+9. multisetup: a data root of two setups (a copy of ``sim_setup`` and
    ``sim_setup_2`` from ``SimProCams(seed=20)``, 500 + 200 pairs, written
    by a child process that starts after ``[sim]``, host seconds;
    CompenNet's pre-training checkpoint copied, and never re-trained): 6
@@ -65,12 +73,12 @@ Phases, each printed on its own lines:
    ``run_percal_attack_multi_setup`` (22 PNGs a setup, no launch) with
    ``load_pretrained`` and no mesh (waves of one); the multi-device path
    only with more than one card;
-9. percal: ``run_projector_based_attack`` for PerC-AL+CompenNet++ with
+10. percal: ``run_projector_based_attack`` for PerC-AL+CompenNet++ with
    ``load_pretrained`` on that CompenNet++, ResNet-18, VGG-16 and
    Inception-v3, the fused 10 targeted + 1 untargeted batch x 50
    iterations each: seconds, ms/iteration (5 iterations re-timed), peak
    memory, 22 PNGs, finite outputs in [0, 1], no warp launch;
-10. onepixel: ``run_projector_based_attack`` for One-pixel DE through the
+11. onepixel: ``run_projector_based_attack`` for One-pixel DE through the
    port's ``SimProCams`` at the default budget (block 41, 4 generations,
    population 50 untargeted and 10 targeted) on the three classifiers:
    per classifier the captures, classifier batches, cache misses (0),
@@ -80,12 +88,12 @@ Phases, each printed on its own lines:
    (probabilities within 1e-4, trial-versus-parent decisions that differ,
    bitwise equality of one image across batch sizes and positions); then
    ``python -m spaa_tpu_torch.digital_one_pixel_attack`` as a child;
-11. main path on the trained setup, ResNet-18 (224x224), VGG-16 (224x224)
+12. main path on the trained setup, ResNet-18 (224x224), VGG-16 (224x224)
    and Inception-v3 (299x299): ``run_projector_based_attack`` with
    ``load_pretrained`` on the trained checkpoint, the full 132-image x
    50-iteration sweep per classifier: s/config, ms/iteration, peak memory,
    264 PNGs, finite outputs in [0, 1], 50 + 50 warp launches each;
-12. pipeline: as subprocesses, ``python -m spaa_tpu_torch.main --steps
+13. pipeline: as subprocesses, ``python -m spaa_tpu_torch.main --steps
    6,7,8,9 --load-pretrained --train-iters 200`` (the replay of the 396
    SPAA projections through the port's ``SimProCams``, the SPAA
    summarize: 36 rows of 71 columns, 396 montages; then step 8: the
@@ -103,7 +111,7 @@ Phases, each printed on its own lines:
    and CompenNet++ are linked under the 2000-iteration keys summarize
    reads), success rates printed side by side (near-ties may flip a top-k
    between cuDNN and the CPU);
-13. bench: ``python -m spaa_tpu_torch.bench`` as a child on that data
+14. bench: ``python -m spaa_tpu_torch.bench`` as a child on that data
    root (``SPAA_BENCH_DATA_ROOT``: nothing is regenerated) at a cut depth,
    ``--reps 1`` and ``--train-iters 400`` (and its 200-iteration warm-up):
    its JSON line must hold every key of the root ``bench.py``'s line and
@@ -111,7 +119,7 @@ Phases, each printed on its own lines:
    the warp's launches of its sweeps (50 + 50 each: one untimed and one
    timed per classifier) and inference chain (20 forwards, 4 times),
    counted into the kernels line;
-14. bf16: the ResNet-18 sweep of step 11 again with ``attack_dtype``
+15. bf16: the ResNet-18 sweep of step 12 again with ``attack_dtype``
    bfloat16 (the shading CNN and the classifier; the warp stays float32):
    s/config, ms/iteration, 264 PNGs, finite outputs in [0, 1], 50 + 50
    launches, and the top-1 agreement of its camera images with the
@@ -424,6 +432,87 @@ def phase_kernels(trained, dev, batch):
     return rows
 
 
+def phase_conv_route(trained, dev):
+    """The routes of ShadingNetSPAA's stride-1 3x3 convolutions
+    (``ops/conv.py``): the route table filled by one no-grad forward of
+    the attack's PCNet at B = 132 (``make_pcnet_fn``) and one of the model
+    at training's B = 24; per key the two median times and their rates,
+    both routes against each other (within 1e-5 of the output's largest
+    value), the backward against ``F.conv2d``'s (the same call: within
+    1e-5, bitwise unless cuDNN's weight gradient adds in another order),
+    and the kernels of one call of each route, and of the input-gradient
+    problem the transposed route poses, from a profile."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from spaa_tpu_torch.attack.orchestrate import make_pcnet_fn
+    from spaa_tpu_torch.ops import conv
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        make_pcnet_fn(trained)(
+            torch.rand((132, 256, 256, 3), generator=gen, device=dev))
+        trained.model(torch.rand((24, 256, 256, 3), generator=gen,
+                                 device=dev), trained.cam_scene, trained.mask)
+    torch.cuda.synchronize()
+    for c in conv.choices():
+        n, cin, h, w = c["x"]
+        cout = c["weight"][0]
+        tflop = 2 * n * h * w * cout * cin * 9 / 1e12
+        x = torch.rand(c["x"], generator=gen, device=dev)
+        wt = (torch.rand(c["weight"], generator=gen, device=dev) - 0.5) \
+            / (3 * cin ** 0.5)
+        b = torch.rand((cout,), generator=gen, device=dev) - 0.5
+        for t in (x, wt, b):
+            t.requires_grad_(True)
+        outs = {r: conv.Conv3x3S1.apply(x, wt, b, r) for r in conv.ROUTES}
+        err = float((outs["direct"] - outs["transposed"]).detach().abs().max()
+                    / outs["direct"].detach().abs().max())
+        gy = torch.randn(outs["direct"].shape, generator=gen, device=dev)
+        ref = torch.autograd.grad(F.conv2d(x, wt, b, 1, 1), (x, wt, b), gy)
+        grads = torch.autograd.grad(outs["transposed"], (x, wt, b), gy)
+        same = all(bool(torch.equal(u, v)) for u, v in zip(grads, ref))
+        gerr = max(float((u - v).abs().max() / v.abs().max())
+                   for u, v in zip(grads, ref))
+        # the input-gradient problem the transposed route hands cuDNN, as
+        # a pullback poses it: gradient x, weight [Cin, Cout, 3, 3]
+        wd = wt.detach().flip(2, 3).transpose(0, 1).contiguous()
+        like = torch.empty((n, cout, h, w), device=dev)
+        calls = {r: (lambda r=r: conv.FORWARD[r](x, wt, b))
+                 for r in conv.ROUTES}
+        calls["as a pullback"] = lambda: torch.ops.aten.convolution_backward(
+            x, like, wd, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [True, False, False])
+        names = {}
+        with torch.no_grad():
+            for r, call in calls.items():
+                call()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    call()
+                    torch.cuda.synchronize()
+                names[r] = "; ".join(
+                    f"{e.key[:90]} {e.self_device_time_total / 1e3:.3f} ms"
+                    for e in sorted(prof.key_averages(),
+                                    key=lambda e: -e.self_device_time_total)
+                    if e.self_device_time_total > 0)
+        log(f"[conv_route] x {c['x']} weight {c['weight']} {c['dtype']}: "
+            f"{c['route']}; direct {c['direct_ms']:.4f} ms "
+            f"({tflop / c['direct_ms'] * 1e3:.2f} TFLOP/s), transposed "
+            f"{c['transposed_ms']:.4f} ms "
+            f"({tflop / c['transposed_ms'] * 1e3:.2f} TFLOP/s); routes "
+            f"apart {err:.3e}; backward against F.conv2d's {gerr:.3e} "
+            f"(bitwise equal: {same})")
+        for r, ks in names.items():
+            log(f"[conv_route]   {r} kernels: {ks or 'none recorded'}")
+        if not err <= 1e-5:
+            raise AssertionError(f"conv routes differ by {err:.3e} at {c}")
+        if not gerr <= 1e-5:
+            raise AssertionError(f"the routed backward differs from "
+                                 f"F.conv2d's by {gerr:.3e} at {c}")
+    log(f"[conv_route] choices {json.dumps(conv.choices())}")
+
+
 def steady_ms_per_iter(cfg, pcnet_apply, clf, cam_scene, target_idx,
                        true_idx, info, dev, iters=5):
     """ms per SPAA iteration on the warm path: the sweep's batch re-run
@@ -458,6 +547,7 @@ def phase_main_path(cfg, trained, dev):
     from spaa_tpu_torch.attack import orchestrate as O
     from spaa_tpu_torch.models.classifiers import (Classifier,
                                                    load_imagenet_labels)
+    from spaa_tpu_torch.ops import conv
     from spaa_tpu_torch.ops import warp as W
     from spaa_tpu_torch.ops.image import center_crop
     from spaa_tpu_torch.utils.io import imread
@@ -486,6 +576,7 @@ def phase_main_path(cfg, trained, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     W.reset_launch_counts()
+    conv.reset_launch_counts()
     t0 = time.time()
     cam_best, prj_best = O._run_spaa_sweep(
         cfg, trained, clf, cam_scene, target_idx, true_idx, info, setup_path,
@@ -493,6 +584,7 @@ def phase_main_path(cfg, trained, dev):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(W.LAUNCHES)
+    conv_routes = dict(conv.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
     n_png = count_pngs(setup_path)
@@ -501,7 +593,7 @@ def phase_main_path(cfg, trained, dev):
     log(f"[main] sweep: {wall:.3f} s wall ({wall / n_cfg:.3f} s/config) "
         f"for {cam_best.shape[0]} images x {iters} iterations; peak memory "
         f"{peak / 2**30:.3f} GiB; {n_png} PNGs; outputs finite and in "
-        f"[0,1]: {ok_out}; launches {launches}")
+        f"[0,1]: {ok_out}; launches {launches}; conv routes {conv_routes}")
     b = 11 * n_cfg
     if cam_best.shape != (b, h_cam, w_cam, 3) or prj_best.shape != \
             (b, *trained.setup_info["prj_im_sz"][::-1], 3):
@@ -1832,6 +1924,7 @@ def main():
         mc = get_model_train_cfg(["PCNet"], data_root, ["sim_setup"])
         trained, _ = load_pretrained_pcnet(mc, "sim_setup", device=dev)
         rows = phase_kernels(trained, dev, batch=132)
+        phase_conv_route(trained, dev)
         cfg = get_attacker_cfg("SPAA", data_root, ["sim_setup"])
         cfg.classifier_names = ["resnet18"]
         cfg.attack_iters = ITERS

@@ -8,6 +8,8 @@ NCHW inside. Channel plan (the reference's):
              skipConv3 64->128 3x3
 The scene may stay a single image [1, 3, H, W] while x is [B, ...]: the
 scene-only skipConv1 chain then runs once and broadcasts at the final add.
+The stride-1 3x3 layers run through ``ops.conv.conv3x3_s1`` with their own
+parameters, which on the card routes each forward by shape.
 """
 
 from __future__ import annotations
@@ -18,12 +20,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from spaa_tpu_torch.ops import conv as conv_ops
+
 
 class SurfaceFeatures(NamedTuple):
     res1: torch.Tensor
     res2: torch.Tensor
     res3: torch.Tensor
     res4: torch.Tensor
+
+
+def _c3(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` for a stride-1, pad-1 3x3 layer."""
+    return conv_ops.conv3x3_s1(x, layer.weight, layer.bias)
 
 
 class ShadingNetSPAA(nn.Module):
@@ -58,25 +67,25 @@ class ShadingNetSPAA(nn.Module):
         s = torch.cat([t.expand(b, *t.shape[1:]) for t in surfaces], dim=1)
         r1 = F.relu(self.conv1_s(s))
         r2 = F.relu(self.conv2_s(r1))
-        r3 = F.relu(self.conv3_s(r2))
-        r4 = F.relu(self.conv4_s(r3))
+        r3 = F.relu(_c3(self.conv3_s, r2))
+        r4 = F.relu(_c3(self.conv4_s, r3))
         return SurfaceFeatures(r1, r2, r3, r4)
 
     def forward(self, x: torch.Tensor, *surfaces: torch.Tensor,
                 surface_feats: Optional[SurfaceFeatures] = None):
         """x: warped projector image; surfaces: (s,) or (s, rough)."""
         res1 = F.relu(self.skipConv1_0(surfaces[0]))
-        res1 = F.relu(self.skipConv1_2(res1))
-        res1 = F.relu(self.skipConv1_4(res1))
+        res1 = F.relu(_c3(self.skipConv1_2, res1))
+        res1 = F.relu(_c3(self.skipConv1_4, res1))
         sf = (self.surface_features(*surfaces) if surface_feats is None
               else surface_feats)
         h = F.relu(self.conv1(x) + sf.res1)
         res2 = self.skipConv2(h)
         h = F.relu(self.conv2(h) + sf.res2)
-        res3 = self.skipConv3(h)
-        h = F.relu(self.conv3(h) + sf.res3)
-        h = F.relu(self.conv4(h) + sf.res4)
-        h = F.relu(self.conv5(h) + res3)
+        res3 = _c3(self.skipConv3, h)
+        h = F.relu(_c3(self.conv3, h) + sf.res3)
+        h = F.relu(_c3(self.conv4, h) + sf.res4)
+        h = F.relu(_c3(self.conv5, h) + res3)
         h = F.relu(self.transConv1(h) + res2)
         h = F.relu(self.transConv2(h))
-        return torch.clamp(F.relu(self.conv6(h) + res1), max=1.0)
+        return torch.clamp(F.relu(_c3(self.conv6, h) + res1), max=1.0)
