@@ -1,7 +1,7 @@
 """Readings that set a cell's limits, in one process on the card: the
 program on sound runs, the control (the plain reference in the program's
 place, in TF32 where the configuration states float32 with TF32 off), and
-each fault of ``benchmark/faults.py`` planted in the program.
+each fault of ``benchmark/faults/<driver>.py`` planted in the program.
 
     python3 -m benchmark.control --workload <name> --seeds 1 2 3 \\
         --modes program control unchanged half_batch answer_altered \\
@@ -30,7 +30,8 @@ def reading(workload: str, seed: int, mode: str) -> dict:
     drv_cls = H.driver_class(traffic)
     fault = mode if mode in FAULTS else None
     t0 = time.perf_counter()
-    plant = planted(drv_cls.kind, fault) if fault else contextlib.nullcontext()
+    plant = planted(traffic["driver"], fault) if fault \
+        else contextlib.nullcontext()
     with plant, contextlib.redirect_stdout(sys.stderr):
         drv = drv_cls(config, traffic, seed, "cuda",
                       mode="control" if mode == "control" else "program")

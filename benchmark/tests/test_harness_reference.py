@@ -189,6 +189,98 @@ def test_spaa_step_matches_port_float64():
     assert float(rel.max()) < 1e-6
 
 
+def test_perc_al_matches_port_float64():
+    """Five iterations of the port's PerC-AL (projector variant, its
+    ``_percal_body``) against the reference's steps and masks from the same
+    states, and the whole reference loop against the port's, in float64:
+    one targeted row already at its target (a best adversarial from the
+    first step), one at another class, one untargeted."""
+    from spaa_tpu_torch.attack import perc_al as P
+    from spaa_tpu_torch.attack.orchestrate import make_attack_logits_fn
+    from spaa_tpu_torch.models.classifiers import ResNet18
+    from benchmark.reference import perc_al as RPA
+    dt64 = torch.float64
+    gen = torch.Generator().manual_seed(6)
+    cw = {k: v.to(dt64) for k, v in RC.draw_weights("resnet18", 10,
+                                                    "cpu").items()}
+    net = ResNet18().to(dt64)
+    net.load_state_dict(cw)
+    net.eval()
+    for q in net.parameters():
+        q.requires_grad_(False)
+    lf = make_attack_logits_fn(SimpleNamespace(net=net), (224, 224))
+
+    def ref_lf(c):
+        return RC.logits("resnet18", cw, c, (224, 224))
+
+    scene = torch.rand(1, 224, 224, 3, generator=gen, dtype=dt64)
+    inputs = scene.expand(3, -1, -1, -1).contiguous()
+    with torch.no_grad():
+        top = int(lf(scene).argmax(1)[0])
+    labels = torch.tensor([top, (top + 500) % 1000, top])
+    targeted = torch.tensor([True, True, False])
+    d_thr = torch.full((3,), 0.5, dtype=dt64)
+    hp = RPA.Hyper(iters=5, p_thresh=0.0)
+    cfg = P.PercALConfig(max_iterations=5, confidence=hp.confidence,
+                         p_thresh=hp.p_thresh)
+    with torch.no_grad():
+        lab = P.rgb2lab_diff(inputs)
+        ref_lab = RCol.rgb2lab(inputs)
+    state = (torch.zeros_like(inputs), torch.zeros(3, dtype=torch.bool),
+             torch.full((3,), 1e5, dtype=dt64), inputs)
+    masks = []
+    for i in range(5):
+        nxt = P._percal_body(lf, inputs, lab, labels, targeted, cfg, d_thr,
+                             True, i, state)
+        adv, col = RPA.step(ref_lf, inputs, ref_lab, state[0], labels,
+                            targeted, i, hp)
+        want = torch.where(state[1][:, None, None, None], col, adv)
+        gap = (nxt[0] - want).flatten(1).norm(dim=1) / \
+            (want - state[0]).flatten(1).norm(dim=1)
+        # the port computes the step sizes in float32: 2.4e-8 of a step
+        assert float(gap.max()) < 1e-6, i
+        with torch.no_grad():
+            x_round = RPA.quantize(inputs + nxt[0])
+            succ, conf, pert = RPA.margins(ref_lf(x_round), nxt[0], labels,
+                                           targeted, d_thr, hp)
+        assert torch.equal(nxt[1], RPA.best_adv(succ, conf, pert, targeted))
+        keep = RPA.adversarial(succ, targeted)[:, None, None, None]
+        assert torch.equal(nxt[3], torch.where(keep, x_round, state[3]))
+        masks.append(nxt[1])
+        state = nxt
+    masks = torch.stack(masks)
+    assert bool(masks.any()) and not bool(masks.all())
+    whole = RPA.attack(ref_lf, inputs, labels, targeted, d_thr, hp)
+    assert float((whole - state[3]).abs().max()) < 1e-9
+
+
+def test_compennet_pp_matches_port_float64():
+    from spaa_tpu_torch.models.compen_net import CompenNetPlusplus
+    from benchmark.drivers.percal_sweep import draw_compennet_pp
+    from benchmark.reference import compennet as RCN
+    dt64 = torch.float64
+    gen = torch.Generator().manual_seed(7)
+    p = {k: v.to(dt64) for k, v in draw_compennet_pp(gen, "cpu").items()}
+    # a warp away from the identity, so the grid's every part counts
+    p["warping_net.theta"] += 0.02 * torch.randn(
+        p["warping_net.theta"].shape, generator=gen, dtype=dt64)
+    p["warping_net.affine_mat"] += 0.05 * torch.randn(
+        1, 2, 3, generator=gen, dtype=dt64)
+    model = CompenNetPlusplus(out_size=(32, 40)).to(dt64)
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == \
+        RCN.shapes()
+    model.load_state_dict(p)
+    model.eval()
+    cam = torch.rand(2, 24, 36, 3, generator=gen, dtype=dt64)
+    scene = torch.rand(1, 24, 36, 3, generator=gen, dtype=dt64)
+    with torch.no_grad():
+        a = model(cam, scene)
+        b = RCN.compennet_pp(p, RP.warp_grid(p, (32, 40)), cam, scene)
+    assert a.shape == (2, 32, 40, 3)
+    assert 0.0 < float(b.max()) and float(b.min()) < 1.0
+    assert float((a - b).abs().max()) < 1e-10
+
+
 def test_train_steps_match_port_float64():
     """Three steps of the port's ``train_model`` (its loss, optimizer and
     schedule) against the reference's, in float64 at a small size."""
@@ -260,7 +352,8 @@ def test_reference_and_counters_import_nothing_of_the_program():
             "benchmark.reference.nets.resnet18, "
             "benchmark.reference.nets.vgg16, benchmark.reference.color, "
             "benchmark.reference.ssim, benchmark.reference.spaa, "
-            "benchmark.reference.train, benchmark.counts.flops, "
+            "benchmark.reference.train, benchmark.reference.perc_al, "
+            "benchmark.reference.compennet, benchmark.counts.flops, "
             "benchmark.counts.warp_bytes; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
